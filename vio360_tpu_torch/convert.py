@@ -1,0 +1,43 @@
+"""Carry tracker and window state between the JAX package and the port.
+
+The JAX package's ``TrackState`` / ``WindowState`` travel as dicts of
+numpy arrays (``to_numpy``, which reads any dataclass of arrays without
+importing JAX), so tests can start both implementations from one state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .estimator.window import WindowState
+from .frontend.tracker import TrackState
+
+
+def to_numpy(state) -> dict[str, np.ndarray]:
+    """Fields of a state dataclass (JAX or port) as numpy arrays."""
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        out[f.name] = v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+    return out
+
+
+def _from_numpy(cls, arrays: dict, device):
+    kw = {}
+    for f in dataclasses.fields(cls):
+        a = np.asarray(arrays[f.name])
+        if a.dtype == np.float64:
+            a = a.astype(np.float32)
+        kw[f.name] = torch.as_tensor(np.array(a, order="C"), device=device)  # keeps 0-d scalars 0-d
+    return cls(**kw)
+
+
+def track_from_numpy(arrays: dict, device=None) -> TrackState:
+    return _from_numpy(TrackState, arrays, device)
+
+
+def window_from_numpy(arrays: dict, device=None) -> WindowState:
+    return _from_numpy(WindowState, arrays, device)

@@ -1,0 +1,249 @@
+"""The steady-state tracking frame and the keyframe event (VO).
+
+Counterpart of ``vio360_tpu/estimator/fused.py`` for the monocular VO
+slice: the packed frame buffer (with the same u8/u16/f32 image
+quantization, so the first frame already matches the reference),
+``tracking_step`` without IMU, the keyframe decision, and the VO branch
+of the keyframe event. The JAX module fused each into one compiled
+dispatch; here they are plain functions whose device work is the three
+hand-written kernels (LK, PnP, window BA) plus PyTorch ops, and the
+host reads one small record per frame.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from vio360_tpu.config import VioConfig
+
+from ..frontend import tracker
+from ..geometry import camera as cam_g
+from ..geometry import lie
+from ..solver import pnp as pnp_mod
+from . import initializer, window
+
+
+def _median_parallax(uv_now, ids_now, valid_now, kf_uv, kf_ids, width):
+    """Median pixel displacement of features shared with a keyframe snapshot."""
+    shared = valid_now & (ids_now >= 0) & (ids_now == kf_ids)
+    du = cam_g.wrap_residual_u(uv_now[:, 0] - kf_uv[:, 0], width)
+    dv = uv_now[:, 1] - kf_uv[:, 1]
+    return initializer.masked_median(torch.sqrt(du * du + dv * dv), shared), shared.sum()
+
+
+def _pnp_inputs(win: window.WindowState, ids, valid, uv, width, height, margin):
+    """Slot-aligned PnP arrays: landmark positions + masks per feature slot."""
+    lm_idx = window.slot_to_landmark(win, ids)
+    has = lm_idx >= 0
+    safe = torch.clamp(lm_idx, 0, win.max_lm - 1).to(torch.int64)
+    points = win.lm_pos[safe]
+    active = valid & has & ~cam_g.is_near_boundary(uv, width, height, margin)
+    return points, active, win.lm_marg[safe] & has
+
+
+def _relabel_tracks(track: tracker.TrackState, mask) -> tracker.TrackState:
+    """Give outlier-latched slots a fresh feature id (breaks their join to
+    the old landmark and to pre-latch keyframe snapshots)."""
+    mask = mask & track.valid
+    fresh = (track.next_id + torch.cumsum(mask.to(torch.int32), 0) - 1).to(torch.int32)
+    return dataclasses.replace(
+        track, ids=torch.where(mask, fresh, track.ids),
+        next_id=(track.next_id + mask.sum()).to(torch.int32),
+    )
+
+
+def keyframe_decision(pnp_success, parallax, n_inl, n_active, cfg: VioConfig):
+    """Parallax trigger OR (default-on) starving trigger, under PnP success."""
+    parallax_kf = parallax >= cfg.tracking.min_parallax_for_keyframe
+    ratio = cfg.tracking.kf_min_inlier_ratio
+    if ratio > 0:
+        starving = ((n_inl < ratio * torch.clamp(n_active, min=1))
+                    & (n_inl >= 3 * cfg.window.pnp_min_inliers))
+    else:
+        starving = torch.zeros((), dtype=torch.bool, device=parallax.device)
+    return pnp_success & (parallax_kf | starving)
+
+
+def _predict_cv(r_cur, t_cur, r_prev, t_prev):
+    """Constant-velocity pose prediction, snapped back onto SO(3)."""
+    ri, ti = lie.se3_inverse(r_prev, t_prev)
+    dr, dt = lie.se3_compose(ri, ti, r_cur, t_cur)
+    r_pred, t_pred = lie.se3_compose(r_cur, t_cur, dr, dt)
+    return lie.so3_renormalize(r_pred), t_pred
+
+
+#: wire dtype + intensity scale per image-transport mode
+_TRANSPORTS = {"f32": (None, 1.0), "u8": ("uint8", 255.0), "u16": ("uint16", 65535.0)}
+
+
+def pack_frame_input(image, timestamp, imu_rows, cap: int, width: int, frame_id: int = 0,
+                     transport: str = "f32") -> np.ndarray:
+    """Host-side: one [H + aux_rows, W] buffer with the (quantized) image
+    and the per-frame scalars (timestamp, frame id, IMU rows + mask)."""
+    h, w = image.shape
+    n_aux = 3 + cap * 8
+    aux = np.zeros(n_aux, np.float32)
+    aux[0] = timestamp
+    aux[1] = frame_id
+    n = min(len(imu_rows), cap) if imu_rows is not None else 0
+    aux[2] = 1.0 if n else 0.0
+    if n:
+        aux[3:3 + n * 7] = np.asarray(imu_rows[-n:], np.float32).ravel()
+        aux[3 + cap * 7:3 + cap * 7 + n] = 1.0
+    dt_name, scale = _TRANSPORTS[transport]
+    if dt_name is None:
+        aux_rows = -(-n_aux // width)
+        buf = np.zeros((h + aux_rows, w), np.float32)
+        buf[:h] = image
+        a = np.zeros(aux_rows * width, np.float32)
+        a[:n_aux] = aux
+        buf[h:] = a.reshape(aux_rows, width)
+        return buf
+    dt = np.dtype(dt_name)
+    n_words = n_aux * (4 // dt.itemsize)
+    aux_rows = -(-n_words // width)
+    buf = np.zeros((h + aux_rows, w), dt)
+    buf[:h] = np.rint(np.asarray(image, np.float32) * scale).clip(0, scale).astype(dt)
+    a = np.zeros(aux_rows * width, dt)
+    a[:n_words] = aux.view(dt)
+    buf[h:] = a.reshape(aux_rows, width)
+    return buf
+
+
+def to_device(buf: np.ndarray, device) -> torch.Tensor:
+    """Upload a packed buffer (uint16 travels as int16 bits: torch has no
+    uint16 arithmetic)."""
+    if buf.dtype == np.uint16:
+        return torch.from_numpy(buf.view(np.int16)).to(device)
+    return torch.from_numpy(buf).to(device)
+
+
+def buf_image(frame_buf: torch.Tensor, height: int) -> torch.Tensor:
+    """Image rows of a packed buffer as f32 in [0, 1], for any transport."""
+    img = frame_buf[:height]
+    if img.dtype == torch.uint8:
+        return img.to(torch.float32) * (1.0 / 255.0)
+    if img.dtype == torch.int16:
+        return (img.to(torch.int32) & 0xFFFF).to(torch.float32) * (1.0 / 65535.0)
+    return img
+
+
+def unpack_frame_buf(frame_buf: torch.Tensor, cfg: VioConfig) -> dict:
+    """Unpack pack_frame_input's layout (any transport)."""
+    h = cfg.camera.height
+    cap = cfg.imu.max_samples_per_frame
+    n_aux = 3 + cap * 8
+    if frame_buf.dtype == torch.float32:
+        aux = frame_buf[h:].reshape(-1)
+    else:
+        lanes = 4 // frame_buf.element_size()
+        aux = frame_buf[h:].reshape(-1)[:n_aux * lanes].contiguous().view(torch.float32)
+    return {
+        "img": buf_image(frame_buf, h),
+        "timestamp": aux[0],
+        "frame_id": aux[1].to(torch.int32),
+        "have_imu": aux[2] > 0.5,
+        "imu_samples": aux[3:3 + cap * 7].reshape(cap, 7),
+        "imu_mask": aux[3 + cap * 7:3 + cap * 8] > 0.5,
+    }
+
+
+def tracking_step(track, win, prev_buf, frame_buf, gen: torch.Generator, r_cur, t_cur, r_prev,
+                  t_prev, vel_cur, r_bc, r_cb, t_cb, cfg: VioConfig):
+    """One VO tracking frame: constant-velocity prediction -> rotation-guess
+    LK + RANSAC front end -> landmark join -> PnP -> outlier relabel ->
+    keyframe decision. Returns (track', r_new, t_new, v_new, bundle [20])
+    with bundle laid out as in the reference (``unpack_bundle``)."""
+    w, h = cfg.camera.width, cfg.camera.height
+    fb = unpack_frame_buf(frame_buf, cfg)
+    img_prev, img_next = buf_image(prev_buf, h), fb["img"]
+    r_pred, t_pred = _predict_cv(r_cur, t_cur, r_prev, t_prev)
+    r_cc_pred = None
+    if cfg.optical_flow.use_rotation_guess:
+        r_cc_pred = (r_pred @ r_bc).T @ (r_cur @ r_bc)
+    track, _, tdiag = tracker.track_frame(track, img_prev, img_next, fb["timestamp"], gen, cfg,
+                                          r_cc_pred=r_cc_pred)
+
+    ids = torch.where(track.valid, track.ids, torch.full_like(track.ids, -1))
+    points, active, marg = _pnp_inputs(win, ids, track.valid, track.uv, w, h,
+                                       cfg.camera.boundary_margin)
+    res = pnp_mod.solve_pnp(
+        r_pred, t_pred, points, track.uv, active, marg, r_cb, t_cb, w, h,
+        huber_delta=cfg.window.huber_delta, chi2_threshold=cfg.window.chi2_threshold,
+        rounds=cfg.window.pnp_rounds, max_iterations=cfg.window.max_lm_iterations,
+        min_inliers=cfg.window.pnp_min_inliers,
+    )
+    track = _relabel_tracks(track, res.outlier & res.success)
+
+    i_last = torch.clamp(win.n_kf - 1, 0, win.max_kf - 1).to(torch.int64)
+    par, n_shared = _median_parallax(track.uv, ids, track.valid, win.kf_feat_uv[i_last],
+                                     win.kf_feat_id[i_last], w)
+    n_active = active.sum()
+    is_kf = keyframe_decision(res.success, par, res.num_inliers, n_active, cfg)
+    f = lambda x: x.to(torch.float32).reshape(-1)
+    bundle = torch.cat([
+        f(res.success), f(is_kf), f(res.num_inliers), f(tdiag["n_tracked"]), f(res.final_cost),
+        f(par), f(n_shared), f(n_active), f(res.r_wb), f(res.t_wb),
+    ])
+    return track, res.r_wb, res.t_wb, vel_cur, bundle
+
+
+def unpack_bundle(b: np.ndarray) -> dict:
+    """Host-side unpack of tracking_step's packed [20] record."""
+    return {
+        "success": bool(b[0]), "is_kf": bool(b[1]), "n_inliers": int(b[2]),
+        "n_tracked": int(b[3]), "pnp_cost": float(b[4]), "parallax": float(b[5]),
+        "n_shared": int(b[6]), "n_active": int(b[7]),
+        "r": b[8:17].reshape(3, 3).copy(), "t": b[17:20].copy(),
+    }
+
+
+def _bad_slots(track, lm_slot, lm_feat_id, new_bad):
+    """Tracker slots whose landmark BA just marked bad (id-joined)."""
+    c = track.uv.shape[0]
+    dest = torch.where(new_bad, torch.clamp(lm_slot, 0, c - 1), torch.full_like(lm_slot, c)).to(torch.int64)
+    bad_id = tracker.scatter_drop(torch.full((c,), -2, dtype=torch.int32, device=lm_slot.device),
+                                  dest, lm_feat_id)
+    return track.ids == bad_id
+
+
+def keyframe_step(cfg: VioConfig, track, win, timestamp, frame_id, r_cur, t_cur, vel_cur, t_bc):
+    """The VO branch of the reference's keyframe event: add_keyframe ->
+    window BA -> outlier relabel -> triangulation -> packed record.
+    Returns (track', win', r', t', vel', record): the record holds the
+    VO fields of the reference's keyframe record (``unpack_kf_record``)."""
+    dev = win.kf_r.device
+    w, h = cfg.camera.width, cfg.camera.height
+    max_kf = cfg.window.max_keyframes
+    zeros = torch.zeros(3, device=dev)
+    ids = torch.where(track.valid, track.ids, torch.full_like(track.ids, -1))
+    win = window.add_keyframe(win, r_cur, t_cur, vel_cur, zeros, zeros, timestamp, frame_id,
+                              track.uv, ids)
+    win, res = window.window_ba(
+        win, t_bc, w, h, cfg.camera.boundary_margin, huber_delta=cfg.window.huber_delta,
+        chi2_threshold=cfg.window.chi2_threshold, max_iterations=cfg.window.max_lm_iterations,
+    )
+    track = _relabel_tracks(track, _bad_slots(track, win.lm_slot, win.lm_feat_id, res.new_bad))
+    win, n_new, n_dropped = window.triangulate_new_landmarks(win, t_bc, w, h, live_ids=track.ids)
+    i_last = torch.clamp(win.n_kf - 1, 0, max_kf - 1).to(torch.int64)
+    f = lambda x: x.to(torch.float32).reshape(-1)
+    record = torch.cat([
+        f(res.final_cost), f(res.num_inliers), f(n_new), f(n_dropped), f(win.lm_alive.sum()),
+        f((win.lm_marg & win.lm_alive).sum()), f(win.kf_id), f(win.kf_r), f(win.kf_t),
+    ])
+    return track, win, win.kf_r[i_last], win.kf_t[i_last], vel_cur, record
+
+
+def unpack_kf_record(rec: np.ndarray, max_kf: int) -> dict:
+    """Host-side unpack of keyframe_step's flat record."""
+    k, o = max_kf, 6
+    return {
+        "ba_cost": float(rec[0]), "ba_inliers": int(rec[1]), "n_new": int(rec[2]),
+        "n_dropped": int(rec[3]), "n_lm_alive": int(rec[4]), "n_lm_marg": int(rec[5]),
+        "kf_id": rec[o:o + k].astype(np.int32),
+        "kf_r": rec[o + k:o + 10 * k].reshape(k, 3, 3).copy(),
+        "kf_t": rec[o + 10 * k:o + 13 * k].reshape(k, 3).copy(),
+    }
