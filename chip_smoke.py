@@ -7,27 +7,38 @@ Phases (any failure raises and the script exits non-zero):
 
 1. device: the card's name, the device count and ``nvidia-smi``'s name
    and power limit;
-2. build: ``nvcc`` builds every kernel of the path for sm_90a from
-   ``vio360_tpu_torch/csrc`` (ptxas register / shared-memory summary);
-3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes, with the stated tolerances and median times
-   (CUDA events, after warm-up);
-4. the slice: render the 40-frame 960x480 textured VO sequence (seed 11)
-   with ``vio360_tpu_torch.synthetic``, run the port's CLI on it on the
-   card with every launch counter at 0, and check that it initializes,
-   makes >= 3 keyframes, launches every kernel of the path, and stays
-   within the accuracy bound set by the JAX package's ATE on the same
-   sequence.
+2. build: ``nvcc`` builds every kernel for sm_90a from
+   ``vio360_tpu_torch/csrc``, one process per source, all at once
+   (ptxas register / shared-memory summary);
+3. kernels: each kernel (K1-K5) against its plain PyTorch version on the
+   card at the main paths' shapes, with the stated tolerances, median
+   times (CUDA events, after warm-up), the least time the card could
+   take for the same work, and the time of one PyTorch call computing
+   the same function where there is one;
+4. lk_matmul: the matmul-gather LK on the card against the same call on
+   the CPU;
+5. the VO slice: render the 40-frame 960x480 textured sequence (seed 11)
+   with ``vio360_tpu_torch.synthetic``, run the port's CLI on it with
+   ``--vo`` (per-feature LK, K4) with every launch counter at 0, and
+   check that it initializes, makes >= 3 keyframes, launches every kernel
+   of the path, and stays within the sim3 ATE bound set by the JAX
+   package on the same sequence;
+6. the VIO slice: the same sequence with its IMU stream through the CLI
+   at ``--lk-backend matmul`` (K5), counters at 0 again; it must
+   initialize, initialize the IMU, make >= 3 keyframes, launch K5, K1
+   and K2, and stay within the SE(3) ATE and scale-error bounds set by
+   the JAX package (``tools/jax_vio_reference.py``).
 
-The last two lines of standard output are the kernels record and
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+The last lines of standard output are ``nvidia-smi``'s name and power
+limit, the kernels record and ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
-import os
 import shutil
 import statistics
 import subprocess
@@ -42,6 +53,21 @@ ROOT = Path(__file__).resolve().parent
 # max(2x, +0.02) of it.
 JAX_ATE = 0.002386132107592164
 ATE_BOUND = max(2.0 * JAX_ATE, JAX_ATE + 0.02)
+
+# SE(3) ATE (m) and scale error of the JAX package's VIO (CPU, lk backend
+# matmul, loop closure and pose graph off) on the same sequence with its
+# IMU stream, from tools/jax_vio_reference.py; it initializes at frame 9
+# and initializes the IMU there. Bounds: max(2x, +0.02) of each.
+JAX_VIO_ATE_SE3 = 0.014014553732509413
+JAX_VIO_SCALE_ERR = 0.01715706788553728
+VIO_ATE_BOUND = max(2.0 * JAX_VIO_ATE_SE3, JAX_VIO_ATE_SE3 + 0.02)
+VIO_SCALE_BOUND = max(2.0 * JAX_VIO_SCALE_ERR, JAX_VIO_SCALE_ERR + 0.02)
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
+# the tensor cores (every kernel here computes in f32).
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+LIBS = ("lm_solve", "lk_pyr", "gather_win")
 
 
 def log(msg: str) -> None:
@@ -70,6 +96,13 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time (ms) the card could take for the work: the larger of
+    bytes over the memory rate and operations over the f32 peak."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def phase_device():
     import torch
 
@@ -85,10 +118,11 @@ def phase_device():
 def phase_build():
     from vio360_tpu_torch import cuda_build
 
-    for lib in ("lm_solve", "lk_pyr"):
-        t0 = time.time()
-        cuda_build.build(lib)
-        log(f"[build] {lib}: {time.time() - t0:.1f}s")
+    t0 = time.time()
+    with concurrent.futures.ThreadPoolExecutor(len(LIBS)) as pool:
+        for lib, _ in zip(LIBS, pool.map(cuda_build.build, LIBS)):
+            log(f"[build] {lib} done at {time.time() - t0:.1f}s")
+    for lib in LIBS:
         for line in cuda_build.PTXAS_LOG[lib].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[ptxas] {line.strip()}")
@@ -149,7 +183,13 @@ def phase_kernels(dev):
         ms.append(timed_ms(lambda: lk_cuda.track(*args), 20))
         plain_ms.append(timed_ms(lambda: lk_cuda.track_plain(*args), 3))
         log(f"[K4 lk_pyr levels={num_levels + 1}] {ms[-1]:.3f} ms vs plain {plain_ms[-1]:.3f} ms")
-    out["lk_pyr"] = dict(max_abs_err=max(errs), ms=ms[0], plain_ms=plain_ms[0])
+    # bytes: the 4 pyramids (I, J, Ix, Iy; 4 levels) read once + per-feature
+    # in/out; operations: template, gradients and one Gauss-Newton step per
+    # feature and level (a lower bound: the step count depends on the data)
+    n_live = int(valid.sum())
+    pyr_px = sum((960 >> k) * (480 >> k) for k in range(4))
+    out["lk_pyr"] = dict(max_abs_err=max(errs), ms=ms[0], plain_ms=plain_ms[0], library_ms=None,
+                         **bound(4 * pyr_px * 4 + 1024 * 29, n_live * 4 * 441 * (3 * 8 + 6 + 14)))
 
     # ---- K1: PnP at M = 1024 ----
     rng = np.random.default_rng(9)
@@ -178,7 +218,11 @@ def phase_kernels(dev):
     k_ms = timed_ms(lambda: ba_cuda.pnp_solve(*pargs), 20)
     p_ms = timed_ms(lambda: ba_cuda._pnp_plain(*pargs), 3)
     log(f"[K1 lm_pnp M={m}] {k_ms:.3f} ms vs plain {p_ms:.3f} ms")
-    out["lm_pnp"] = dict(max_abs_err=max(dt_, dr_), ms=k_ms, plain_ms=p_ms)
+    # bytes: points, observations and masks in, pose / mask / outlier out;
+    # operations: 4 chi2 rounds of at least one LM iteration over M landmarks
+    # (~300 flops each: transform, projection, Jacobian, normal equations)
+    out["lm_pnp"] = dict(max_abs_err=max(dt_, dr_), ms=k_ms, plain_ms=p_ms, library_ms=None,
+                         **bound(m * (12 + 8 + 8) + m * 8 + 64, 4 * m * 300))
 
     # ---- K2 (K = 10 and 2) and K3 (K = 10) at M = 2048 ----
     def ba_problem(k, seed):
@@ -200,7 +244,13 @@ def phase_kernels(dev):
         return (rs, ts_p, pts, uv, mask.float(), fixed_pose, fixed_point, 1e-4, rcb, tcb, 960, 480,
                 1.0, 1.0, False)
 
-    ba_err, ba_ms, ba_plain_ms = [], None, None
+    def ba_flops(k, mm, iters):
+        # per LM iteration: per observation Jacobian + weighted normal
+        # blocks (~300), per landmark Schur cross terms (K^2 * 6*6*3*2) and
+        # the 6K x 6K elimination
+        return iters * (k * mm * 300 + mm * k * k * 216 + (6 * k) ** 3 / 3)
+
+    ba_err, ba_ms, ba_plain_ms, ba_bound = [], None, None, None
     for k in (10, 2):
         bargs = ba_problem(k, 5 + k)
         kk = ba_cuda.ba_solve(*bargs, max_iterations=50)
@@ -216,7 +266,10 @@ def phase_kernels(dev):
             ba_ms = timed_ms(lambda: ba_cuda.ba_solve(*bargs, max_iterations=50), 10)
             ba_plain_ms = timed_ms(lambda: ba_cuda._ba_plain(*bargs, 50), 2)
             log(f"[K2 lm_ba_solve K=10 M=2048] {ba_ms:.3f} ms vs plain {ba_plain_ms:.3f} ms")
-    out["lm_ba_solve"] = dict(max_abs_err=max(ba_err), ms=ba_ms, plain_ms=ba_plain_ms)
+            ba_bound = bound(k * 2048 * 12 + 2048 * 13 + k * 12 * 2 + 2048 * 12,
+                             ba_flops(k, 2048, max(int(kk[4]), 1)))
+    out["lm_ba_solve"] = dict(max_abs_err=max(ba_err), ms=ba_ms, plain_ms=ba_plain_ms,
+                              library_ms=None, **ba_bound)
 
     bargs = ba_problem(10, 15)
     kk = ba_cuda.ba_iteration(*bargs)
@@ -232,49 +285,138 @@ def phase_kernels(dev):
     k3_plain = timed_ms(lambda: ba_cuda._ba_plain(*bargs, None), 3)
     log(f"[K3 lm_ba_iteration K=10 M=2048] max scaled err {worst:.3e}; {k3_ms:.3f} ms vs plain "
         f"{k3_plain:.3f} ms (off the main path: tests only)")
+    out["lm_ba_iteration"] = dict(max_abs_err=worst, ms=k3_ms, plain_ms=k3_plain, library_ms=None,
+                                  **bound(10 * 2048 * 12 + 2048 * 13 + 2048 * 12 + 240,
+                                          ba_flops(10, 2048, 1)))
+    out["gather_win"] = phase_gather(dev, img0, img1, uv, valid)
     return out
 
 
-def sim3_ate(traj: Path, groundtruth: Path) -> float:
-    """sim3 ATE RMSE (m) from the repo's evaluator, ``tools/evaluate_ate.py``."""
-    out = subprocess.run([sys.executable, str(ROOT / "tools" / "evaluate_ate.py"), str(traj),
-                          str(groundtruth), "--align", "sim3"],
-                         capture_output=True, text=True, check=True, cwd=ROOT)
-    return float(json.loads(out.stdout.strip().splitlines()[-1])["ate_rmse_sim3"])
-
-
-def phase_slice(dev):
-    import numpy as np
+def phase_gather(dev, img0, img1, uv, valid):
+    """K5 against its plain version at every (level, g) the matmul LK uses
+    on 960x480 with N = 1024: g = p+3 = 24 (template), 34 (search at the
+    top processed level), 28 (search below); edge rows included."""
     import torch
 
-    from vio360_tpu_torch import cli, synthetic
-    from vio360_tpu_torch.ops import lk_cuda
+    from vio360_tpu_torch.ops import gather_cuda, lk_matmul
+
+    levels = lk_matmul.level_images(img0, img1, 3)
+    n = uv.shape[0]
+    rec = None
+    for lvl, (im_i, im_j, w_k) in enumerate(levels):
+        h_k, wp = im_i.shape
+        s = 1.0 / (1 << lvl)
+        for g in (24, 34, 28):
+            drift = (g - 21 - 1) // 2
+            v0 = (torch.floor(uv[:, 1] * s - 10) - drift).to(torch.int32)
+            v0[:64] = torch.linspace(-6, h_k + 4, 64, device=dev).to(torch.int32)  # edge rows
+            u0 = torch.remainder((torch.floor(uv[:, 0] * s - 10) - drift).to(torch.int32), w_k)
+            b = torch.div(u0, 128, rounding_mode="floor")
+            img = im_j if g != 24 else im_i
+            got = gather_cuda.gather_window_pairs(img, v0, b, g)
+            ref = gather_cuda.gather_window_pairs_plain(img, v0, b, g)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref), f"K5 disagrees at level {lvl}, g {g}")
+            if lvl == 0 and g == 28:  # the largest call on the path: level-0 search patches
+                k_ms = timed_ms(lambda: gather_cuda.gather_window_pairs(img, v0, b, g), 50)
+                p_ms = timed_ms(lambda: gather_cuda.gather_window_pairs_plain(img, v0, b, g), 20)
+                imgb = img.to(torch.bfloat16)
+                rows, cols = gather_cuda.window_indices(h_k, wp, v0, b, g)
+                ri, ci = rows[:, :, None], cols[:, None, :]
+                lib_ms = timed_ms(lambda: imgb[ri, ci], 50)
+                rec = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                           **bound(h_k * wp * 4 + n * 8 + n * g * 256 * 2, n * g * 256))
+                log(f"[K5 gather_win level 0 N={n} g={g} WP={wp}] {k_ms:.4f} ms vs plain {p_ms:.4f} ms, "
+                    f"indexing call {lib_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        log(f"[K5 gather_win level {lvl} {h_k}x{wp}] equal to its plain version at g = 24, 34, 28")
+    return rec
+
+
+def phase_lk_matmul(dev):
+    """The matmul-gather LK on the card against the same call on the CPU."""
+    import torch
+
+    from vio360_tpu_torch.geometry import camera as cam
+    from vio360_tpu_torch.ops import lk_matmul, shi_tomasi
+
+    img0, img1 = _texture_pair(dev)
+    uv, _, valid = shi_tomasi.detect(img0, cam.polar_mask(960, 480, 0.15, device=dev),
+                                     torch.zeros(1, 2, device=dev),
+                                     torch.zeros(1, dtype=torch.bool, device=dev), max_new=1024,
+                                     min_distance=8.0, quality_level=0.001)
+    uc, sc, _ = lk_matmul.track(img0, img1, uv, valid)
+    up, sp, _ = lk_matmul.track(img0.cpu(), img1.cpu(), uv.cpu(), valid.cpu())
+    sc = sc.cpu()
+    both = sc & sp
+    d = float((uc.cpu() - up)[both].abs().max())
+    ms = timed_ms(lambda: lk_matmul.track(img0, img1, uv, valid), 10)
+    log(f"[lk_matmul 960x480 N=1024 4 levels] card {int(sc.sum())} vs CPU {int(sp.sum())} tracked; "
+        f"max |duv| {d:.3e} px on {int(both.sum())} both-tracked; {ms:.3f} ms on the card")
+    check(abs(int(sc.sum()) - int(sp.sum())) <= 0.01 * int(sp.sum()) and d < 1e-2,
+          "lk_matmul on the card disagrees with the CPU")
+
+
+def evaluate_ate(traj: Path, groundtruth: Path, align: str) -> dict:
+    """ATE record of the repo's evaluator, ``tools/evaluate_ate.py``."""
+    out = subprocess.run([sys.executable, str(ROOT / "tools" / "evaluate_ate.py"), str(traj),
+                          str(groundtruth), "--align", align],
+                         capture_output=True, text=True, check=True, cwd=ROOT)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _counters():
+    from vio360_tpu_torch.ops import gather_cuda, lk_cuda
     from vio360_tpu_torch.solver import ba_cuda
+
+    return (ba_cuda.LAUNCHES, lk_cuda.LAUNCHES, gather_cuda.LAUNCHES)
+
+
+def _run_cli(seq: Path, extra: list, dev):
+    """The port's CLI on ``seq`` with every launch counter at 0 ->
+    (launches, metrics rows, wall seconds)."""
+    import torch
+
+    from vio360_tpu_torch import cli
+
+    (seq / "metrics.jsonl").unlink(missing_ok=True)  # the writer appends
+    for c in _counters():
+        c.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rc = cli.main([str(seq), *extra, "--no-loop", "--no-pose-graph", "--output",
+                   str(seq / "traj.tum"), "--metrics", str(seq / "metrics.jsonl"), "--device",
+                   str(dev), "--quiet"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: v for c in _counters() for k, v in c.items()}
+    check(rc == 0, f"CLI exited {rc}")
+    rows = [json.loads(line) for line in (seq / "metrics.jsonl").read_text().splitlines()]
+    return launches, rows, wall
+
+
+def render_sequence(dev) -> Path:
+    from vio360_tpu_torch import synthetic
 
     seq = ROOT / "build" / "smoke_seq11"
     shutil.rmtree(seq, ignore_errors=True)
     t0 = time.time()
     synthetic.make_dataset(str(seq), frames=40, width=960, height=480, seed=11, texture=True,
                            device=dev)
-    log(f"[slice] rendered 40 frames 960x480 (seed 11, textured) in {time.time() - t0:.1f}s")
-    traj, met = seq / "traj.tum", seq / "metrics.jsonl"
-    ba_cuda.LAUNCHES.clear()
-    lk_cuda.LAUNCHES.clear()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    rc = cli.main([str(seq), "--vo", "--no-loop", "--no-pose-graph", "--output", str(traj),
-                   "--metrics", str(met), "--device", str(dev), "--quiet"])
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = {**ba_cuda.LAUNCHES, **lk_cuda.LAUNCHES}
-    check(rc == 0, f"CLI exited {rc}")
-    rows = [json.loads(line) for line in met.read_text().splitlines()]
+    log(f"[slice] rendered 40 frames 960x480 (seed 11, textured, with IMU) in {time.time() - t0:.1f}s")
+    return seq
+
+
+def phase_slice(dev, seq: Path):
+    import numpy as np
+
+    traj = seq / "traj.tum"
+    launches, rows, wall = _run_cli(seq, ["--vo"], dev)
     frames = [r for r in rows if "frame" in r]
     states = [r["state"] for r in frames]
     n_kf = sum(bool(r["keyframe"]) for r in frames)
     lm = [r["n_lm_alive"] for r in frames if "n_lm_alive" in r]
     p_est = np.loadtxt(traj, ndmin=2)[:, 1:4]  # TUM rows: t x y z qx qy qz qw
-    ate = sim3_ate(traj, seq / "groundtruth.tum")
+    ate = float(evaluate_ate(traj, seq / "groundtruth.tum", "sim3")["ate_rmse_sim3"])
     log(f"[slice] frames {len(frames)}, init at frame {states.index('initialized') if 'initialized' in states else -1}, "
         f"keyframes {n_kf}, landmarks {lm[-1] if lm else 0}, sim3 ATE {ate:.6f} m "
         f"(bound {ATE_BOUND:.6f}, JAX {JAX_ATE:.6f}), wall {1000 * wall / len(frames):.1f} ms/frame")
@@ -284,6 +426,41 @@ def phase_slice(dev):
     for name in ("lk_pyr", "lm_pnp", "lm_ba_solve"):
         check(launches.get(name, 0) > 0, f"kernel {name} was not launched by the main path")
     check(math.isfinite(ate) and ate <= ATE_BOUND, f"ATE {ate} above bound {ATE_BOUND}")
+    check(np.isfinite(p_est).all() and p_est.shape == (40, 3), "bad trajectory")
+    return launches
+
+
+def phase_vio(dev, seq: Path):
+    """The VIO slice through the CLI at --lk-backend matmul."""
+    import numpy as np
+
+    traj = seq / "traj.tum"
+    launches, rows, wall = _run_cli(seq, ["--lk-backend", "matmul"], dev)
+    frames = [r for r in rows if "frame" in r]
+    summary = next(r for r in rows if r.get("event") == "stage_summary")
+    states = [r["state"] for r in frames]
+    n_kf = sum(bool(r["keyframe"]) for r in frames)
+    init = states.index("initialized") if "initialized" in states else -1
+    imu_init = next((r["frame"] for r in frames if r.get("imu_initialized")), -1)
+    p_est = np.loadtxt(traj, ndmin=2)[:, 1:4]
+    ev = evaluate_ate(traj, seq / "groundtruth.tum", "se3")
+    ate, scale_err = float(ev["ate_rmse_se3"]), float(ev["scale_error"])
+    steady = [r["wall_time"] for r in frames]
+    log(f"[vio] frames {len(frames)}, init at frame {init}, IMU init at frame {imu_init}, "
+        f"keyframes {n_kf}, SE(3) ATE {ate:.6f} m (bound {VIO_ATE_BOUND:.6f}, JAX "
+        f"{JAX_VIO_ATE_SE3:.6f}), scale error {scale_err:.5f} (bound {VIO_SCALE_BOUND:.5f}, JAX "
+        f"{JAX_VIO_SCALE_ERR:.5f}), wall {1000 * wall / len(frames):.1f} ms/frame, steady "
+        f"{1000 * (steady[-1] - steady[init]) / max(len(frames) - 1 - init, 1):.1f} ms/frame after init")
+    log("[vio] stage means (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(summary.items())
+                                               if k not in ("event", "wall_time")))
+    log(f"[vio] launches {dict(launches)}")
+    check(init >= 0, "the VIO slice never initialized")
+    check(imu_init >= 0, "the VIO slice never initialized the IMU")
+    check(n_kf >= 3, f"only {n_kf} keyframes")
+    for name in ("gather_win", "lm_pnp", "lm_ba_solve"):
+        check(launches.get(name, 0) > 0, f"kernel {name} was not launched by the VIO path")
+    check(math.isfinite(ate) and ate <= VIO_ATE_BOUND, f"SE(3) ATE {ate} above {VIO_ATE_BOUND}")
+    check(scale_err <= VIO_SCALE_BOUND, f"scale error {scale_err} above {VIO_SCALE_BOUND}")
     check(np.isfinite(p_est).all() and p_est.shape == (40, 3), "bad trajectory")
     return launches
 
@@ -308,17 +485,25 @@ def main() -> int:
     name, count = phase_device()
     phase_build()
     rec = phase_kernels(dev)
-    launches = phase_slice(dev)
+    phase_lk_matmul(dev)
+    seq = render_sequence(dev)
+    vo = phase_slice(dev, seq)
+    vio = phase_vio(dev, seq)
     sources = {
         "lk_pyr": ("vio360_tpu_torch/csrc/lk_pyr.cu", "vio360_tpu/ops/lk_pallas.py:64"),
         "lm_pnp": ("vio360_tpu_torch/csrc/lm_solve.cu", "vio360_tpu/solver/ba_pallas.py:777"),
         "lm_ba_solve": ("vio360_tpu_torch/csrc/lm_solve.cu", "vio360_tpu/solver/ba_pallas.py:667"),
+        "lm_ba_iteration": ("vio360_tpu_torch/csrc/lm_solve.cu", "vio360_tpu/solver/ba_pallas.py:455"),
+        "gather_win": ("vio360_tpu_torch/csrc/gather_win.cu", "vio360_tpu/ops/gather_pallas.py:46"),
     }
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": int(launches.get(k, 0)), **rec[k]}
+         "launches": int(vo.get(k, 0) + vio.get(k, 0)), **rec[k],
+         **({"note": "tests only: on no main path"} if k == "lm_ba_iteration" else {})}
         for k, (src, rep) in sources.items()
     ]
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

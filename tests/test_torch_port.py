@@ -20,8 +20,10 @@ and its counterpart in the port, with the JAX package's own tolerances:
 - the kernels against their plain versions on a CUDA card (marked
   ``cuda``; they skip without one).
 
-Also: the port never imports JAX, and its CLI refuses what is not ported
-with exit code 2.
+Also: the port never imports JAX or the JAX package, its entry points
+run on the card unless asked for the CPU, and its CLI refuses what is
+not ported with exit code 2. ``port_cfg`` builds the port's configuration
+from the JAX package's (test_torch_vio.py imports it).
 
 The suite lives in one file on purpose: where ``vio360_pytest_guard``
 splits a whole-suite run into processes of at most 17 test files, every
@@ -62,7 +64,7 @@ except ModuleNotFoundError as e:
     # A card's machine may have no JAX: there only ``pytest -m cuda`` is meaningful.
     if e.name != "jax":
         raise
-from vio360_tpu_torch import convert, synthetic as tsyn
+from vio360_tpu_torch import config as tcfg, convert, synthetic as tsyn
 from vio360_tpu_torch.estimator import fused as tfused
 from vio360_tpu_torch.estimator.estimator import Estimator as TorchEstimator
 from vio360_tpu_torch.geometry import camera as tcam, essential as tess, lie as tlie
@@ -81,6 +83,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _t(x):
     return torch.as_tensor(np.array(x))
+
+
+def port_cfg(jax_cfg, cls=tcfg.VioConfig):
+    """The port's configuration with every field it keeps taken from the
+    JAX package's configuration (same names, nested dataclasses)."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(jax_cfg, f.name)
+        kw[f.name] = port_cfg(v, type(f.default)) if dataclasses.is_dataclass(f.default) else v
+    return cls(**kw)
 
 
 def _rng(seed=0):
@@ -240,12 +252,17 @@ def test_leaf_matches_jax(name):
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py, import neither JAX nor
+    any module of the JAX package."""
     code = (
         "import sys, importlib, pkgutil, vio360_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'vio360_tpu_torch.'):\n"
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if k.startswith('jax'))\n"
+        "bad = sorted(k for k in sys.modules if k == 'vio360_tpu' or k.startswith('vio360_tpu.'))\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
@@ -260,7 +277,7 @@ def test_port_imports_no_jax():
     (["--no-loop", "--no-pose-graph", "--frames-per-dispatch", "4"], "batched dispatch"),
     (["--no-loop", "--no-pose-graph", "--x64"], "--x64"),
     (["--no-loop", "--no-pose-graph", "--checkpoint", "c.pkl"], "--checkpoint"),
-    (["--no-loop", "--no-pose-graph"], "IMU"),
+    (["--no-loop", "--no-pose-graph", "--resume", "c.pkl"], "--resume"),
 ])
 def test_cli_refuses_unported(tmp_path, capsys, extra, needle):
     from vio360_tpu_torch import cli
@@ -272,6 +289,23 @@ def test_cli_refuses_unported(tmp_path, capsys, extra, needle):
     assert cli.main([str(tmp_path), *extra]) == 2
     err = capsys.readouterr().err
     assert "not ported" in err and needle in err, err
+
+
+def test_entry_points_refuse_without_a_card(tmp_path, capsys, monkeypatch):
+    """With no card, the estimator and the CLI run only when asked for the CPU."""
+    from vio360_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tcfg.VioConfig(loop=tcfg.LoopConfig(enabled=False),
+                         pose_graph=tcfg.PoseGraphConfig(enabled=False))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchEstimator(cfg)
+    assert TorchEstimator(cfg, device="cpu").device.type == "cpu"
+    os.makedirs(tmp_path / "images")
+    np.save(tmp_path / "images" / "000000.npy", np.zeros((H, W), np.float32))
+    (tmp_path / "cam_timestamps.txt").write_text("0.0\n")
+    assert cli.main([str(tmp_path), "--no-loop", "--no-pose-graph"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------
@@ -589,7 +623,7 @@ def runs():
     jax_est = JaxEstimator(cfg)
     captured = {}
     jax_res = _run(jax_est, images, captured)
-    torch_est = TorchEstimator(cfg, device="cpu")
+    torch_est = TorchEstimator(port_cfg(cfg), device="cpu")
     torch_res = _run(torch_est, images)
     return dict(cfg=cfg, images=images, ts=ts, jax=(jax_est, jax_res), torch=(torch_est, torch_res),
                 captured=captured)
@@ -630,7 +664,7 @@ def _check_tracking_step(runs):
     _, r_t, t_t, _, b_t = tfused.tracking_step(
         track, win, prev_buf, tfused.to_device(buf, "cpu"), torch.Generator().manual_seed(5),
         _t(cap["r_cur"]), _t(cap["t_cur"]), _t(cap["r_prev"]), _t(cap["t_prev"]), torch.zeros(3),
-        _t(r_bc), _t(r_cb), _t(t_cb), cfg,
+        _t(r_bc), _t(r_cb), _t(t_cb), port_cfg(cfg),
     )
     b_t = tfused.unpack_bundle(b_t.numpy())
     assert b_t["success"] == b_j["success"] and b_j["success"]

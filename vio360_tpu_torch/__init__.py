@@ -3,16 +3,19 @@
 Same subpackage layout and module names as the JAX package, so the
 counterpart of ``vio360_tpu/<path>.py`` is ``vio360_tpu_torch/<path>.py``.
 The exceptions are the kernel modules: ``solver/ba_cuda.py`` replaces
-``solver/ba_pallas.py`` and ``ops/lk_cuda.py`` replaces
-``ops/lk_pallas.py``; their CUDA sources live in ``csrc/``.
+``solver/ba_pallas.py``, ``ops/lk_cuda.py`` replaces
+``ops/lk_pallas.py`` and ``ops/gather_cuda.py`` replaces
+``ops/gather_pallas.py``; their CUDA sources live in ``csrc/``.
 
-The port imports ``torch`` and never ``jax``. It reuses the JAX
-package's modules that are free of JAX (``config``, ``io.dataset``,
-``io.trajectory``, ``utils.logging``, ``utils.metrics``); importing them
-pulls in no JAX because ``vio360_tpu/__init__.py`` imports nothing.
+The port imports ``torch`` and never ``jax``, and nothing of
+``vio360_tpu``: it keeps its own copies of the JAX package's JAX-free
+modules it needs (``config``, ``io.dataset``, ``io.trajectory``,
+``utils.logging``).
 
-This slice covers monocular VO, sequential, at the default operating
-point: see ``cli.py`` for what is refused as not yet ported.
+Ported: monocular VO and VIO, sequential, at the default operating
+point, with either LK front end (``optical_flow.backend``: ``matmul``
+for the matmul-gather LK with kernel K5, else the per-feature kernel
+K4). See ``cli.py`` for what is refused as not yet ported.
 """
 
 __version__ = "0.1.0"

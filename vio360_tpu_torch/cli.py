@@ -1,14 +1,17 @@
-"""Command-line monocular VO runner (the port's main path).
+"""Command-line VO / VIO runner (the port's main path).
 
-Counterpart of ``vio360_tpu/cli.py`` for the ported slice::
+Counterpart of ``vio360_tpu/cli.py`` for the ported slices::
 
-    python -m vio360_tpu_torch DATASET [--config cfg.yaml] --vo \\
-        --no-loop --no-pose-graph [--output traj.tum] [--metrics m.jsonl]
+    python -m vio360_tpu_torch DATASET --no-loop --no-pose-graph \\
+        [--lk-backend matmul] [--vo] [--config cfg.yaml] [--output traj.tum] \\
+        [--metrics m.jsonl] [--device cuda:0|cpu]
 
-Anything that needs a part of the system not ported yet exits with
-code 2 and names it: IMU rows without ``--vo``, loop closure or the pose
-graph left on (the YAML loader cannot turn them off, hence
-``--no-loop`` / ``--no-pose-graph``), and the flags ``--mesh``,
+A dataset with IMU rows runs VIO unless ``--vo`` is given. ``--device``
+defaults to the card; without one the run stops with an error unless
+``--device cpu`` is given. Anything that needs a part of the system not
+ported yet exits with code 2 and names it: loop closure or the pose
+graph left on (the YAML loader cannot turn them off, hence ``--no-loop``
+/ ``--no-pose-graph``), and the flags ``--mesh``,
 ``--frames-per-dispatch`` > 1, ``--checkpoint``, ``--resume``,
 ``--step``, ``--x64``, ``--profile`` and ``--viz-dir``. The frame loop
 is always sequential, so ``--no-pipelined`` is accepted and changes
@@ -46,7 +49,7 @@ def _refuse(what: str) -> int:
 
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="vio360_tpu_torch",
-                                description="360 monocular VO on PyTorch + CUDA")
+                                description="360 VO / VIO on PyTorch + CUDA")
     p.add_argument("dataset_dir", help="dataset directory (images/ + cam_timestamps.txt)")
     p.add_argument("--config", default=None, help="reference-format YAML config")
     p.add_argument("--output", default="trajectory.tum", help="TUM trajectory output path")
@@ -57,7 +60,9 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--no-pose-graph", action="store_true", help="turn the pose graph off")
     p.add_argument("--no-pipelined", action="store_true", help="accepted; the loop is sequential")
     p.add_argument("--image-transport", default=None, choices=["f32", "u8", "u16"])
-    p.add_argument("--device", default=None, help="torch device (default: cuda if present)")
+    p.add_argument("--lk-backend", default=None, choices=["auto", "xla", "matmul", "pallas"],
+                   help="LK front end: matmul = the matmul-gather LK, else the per-feature LK")
+    p.add_argument("--device", default=None, help="torch device (default: cuda:0)")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--frames-per-dispatch", type=int, default=None, metavar="K")
     p.add_argument("--mesh", default=None, metavar="AXIS=N")
@@ -86,13 +91,12 @@ def main(argv: list[str] | None = None) -> int:
         print("error: missing images directory", file=sys.stderr)
         return 2
 
-    from vio360_tpu import config as cfgmod
-    from vio360_tpu.io import dataset as ds
-    from vio360_tpu.io import trajectory as tio
-    from vio360_tpu.utils.logging import MetricsWriter, get_logger
-
+    from . import config as cfgmod
     from . import device as device_mod
     from .estimator.estimator import Estimator, unported_features
+    from .io import dataset as ds
+    from .io import trajectory as tio
+    from .utils.logging import MetricsWriter, get_logger
 
     device_mod.pin_fp32()
     log = get_logger("vio360.torch.cli")
@@ -107,6 +111,9 @@ def main(argv: list[str] | None = None) -> int:
         cfg = dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, enabled=False))
     if args.no_pose_graph:
         cfg = dataclasses.replace(cfg, pose_graph=dataclasses.replace(cfg.pose_graph, enabled=False))
+    if args.lk_backend:
+        cfg = dataclasses.replace(cfg, optical_flow=dataclasses.replace(
+            cfg.optical_flow, backend=args.lk_backend))
     if args.image_transport:
         cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
             cfg.solver, image_transport=args.image_transport))
@@ -117,26 +124,28 @@ def main(argv: list[str] | None = None) -> int:
 
     # The Python decode path (numpy / PIL): the optional native prefetch
     # decoder (io/native_loader.py) is not part of this slice.
-    data = ds.VioDataset(args.dataset_dir, image_size=(cfg.camera.width, cfg.camera.height),
-                         use_native=False)
+    data = ds.VioDataset(args.dataset_dir, image_size=(cfg.camera.width, cfg.camera.height))
     n = len(data)
     if n == 0:
         print("error: dataset contains no frames", file=sys.stderr)
         return 2
-    if data.imu.shape[0] and not args.vo:
-        return _refuse("visual-inertial odometry (the dataset has IMU rows; pass --vo)")
     if args.max_frames:
         n = min(n, args.max_frames)
 
-    est = Estimator(cfg, device=args.device)
-    log.info("dataset: %d frames on %s", n, est.device)
+    try:
+        device = device_mod.resolve(args.device)
+    except RuntimeError as e:  # no card and no --device
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    est = Estimator(cfg, device=device)
+    log.info("dataset: %d frames, %d IMU samples on %s", n, data.imu.shape[0], est.device)
     metrics = MetricsWriter(args.metrics)
     t0 = time.time()
     n_kf = 0
     for frame in data:
         if frame.index >= n:
             break
-        res = est.process_frame(frame.image, frame.timestamp, None)
+        res = est.process_frame(frame.image, frame.timestamp, None if args.vo else frame.imu)
         n_kf += int(res.is_keyframe)
         metrics.write(frame=res.frame_id, t=res.timestamp, state=res.state,
                       keyframe=res.is_keyframe, tracked=res.n_tracked, inliers=res.n_pnp_inliers,

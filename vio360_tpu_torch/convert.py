@@ -1,8 +1,10 @@
-"""Carry tracker and window state between the JAX package and the port.
+"""Carry tracker, window and inertial state between the JAX package and the port.
 
-The JAX package's ``TrackState`` / ``WindowState`` travel as dicts of
-numpy arrays (``to_numpy``, which reads any dataclass of arrays without
-importing JAX), so tests can start both implementations from one state.
+The JAX package's ``TrackState`` / ``WindowState`` / ``Preintegration``
+travel as dicts of numpy arrays (``to_numpy``, which reads any
+dataclass of arrays without importing JAX), so tests can start both
+implementations from one state; ``vio_state`` reads an estimator's
+inertial fields the same way.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from .estimator.window import WindowState
 from .frontend.tracker import TrackState
+from .imu.preintegration import Preintegration
 
 
 def to_numpy(state) -> dict[str, np.ndarray]:
@@ -41,3 +44,24 @@ def track_from_numpy(arrays: dict, device=None) -> TrackState:
 
 def window_from_numpy(arrays: dict, device=None) -> WindowState:
     return _from_numpy(WindowState, arrays, device)
+
+
+def preint_from_numpy(arrays: dict, device=None) -> Preintegration:
+    """A (possibly stacked) preintegration from ``to_numpy`` arrays."""
+    return _from_numpy(Preintegration, arrays, device)
+
+
+#: the estimator's inertial state: tensors, then host scalars
+VIO_TENSORS = ("bg", "ba", "vel_cur", "gravity_w")
+VIO_SCALARS = ("n_pairs", "imu_initialized", "has_imu_stream", "scale_refine_count")
+
+
+def vio_state(est) -> dict:
+    """The inertial state of an estimator (JAX or port) as numpy arrays
+    and host scalars: stacked pair preintegrations, biases, velocity,
+    gravity, live pair count and the IMU flags."""
+    out = {k: np.asarray(v.detach().cpu().numpy() if torch.is_tensor(v) else v, np.float32)
+           for k, v in ((k, getattr(est, k)) for k in VIO_TENSORS)}
+    out.update({k: getattr(est, k) for k in VIO_SCALARS})
+    out["preints"] = to_numpy(est.preints)
+    return out

@@ -19,9 +19,13 @@ def pin_fp32() -> None:
 
 
 def resolve(device: str | torch.device | None = None) -> torch.device:
-    """``None`` -> the first CUDA device when one exists, else the CPU."""
+    """``None`` -> ``cuda:0``, and an error when there is no card: the
+    entry points run on the card unless the caller asks for the CPU."""
     if device is None:
-        return torch.device("cuda:0" if torch.cuda.is_available() else "cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the port runs on the card by default; "
+                               "pass device='cpu' (CLI: --device cpu) to run on the CPU")
+        return torch.device("cuda:0")
     return torch.device(device)
 
 

@@ -1,13 +1,17 @@
-"""Per-frame monocular VO state machine (sequential).
+"""Per-frame VO / VIO state machine (sequential).
 
-Counterpart of the VO-sequential subset of
-``vio360_tpu/estimator/estimator.py``: ``process_frame`` (bootstrap,
-two-view init with its window BA and per-frame PnP backfill, steady
-tracking frames, keyframe events) and ``export_trajectory``. The IMU,
-megastep, pipelined/batched loops, loop closure, pose graph and
-checkpoints are not ported yet; the constructor refuses configurations
-that need them. Every numeric stage runs on ``self.device``; the host
-reads one small record per frame.
+Counterpart of the sequential subset of
+``vio360_tpu/estimator/estimator.py``: ``process_frame`` with its IMU
+accounting (bootstrap, two-view init with its window BA, then either
+the VO per-frame PnP backfill or the VIO promotion of the bootstrap
+window to keyframes and the IMU initialization with its quality gates;
+steady tracking frames with constant-velocity or IMU prediction;
+keyframe events with window BA or VIBA, the IMU-init retry after a
+rejection, and the periodic scale / gravity refine) and
+``export_trajectory``. The megastep, pipelined / batched loops, loop
+closure, pose graph and checkpoints are not ported yet; the constructor
+refuses configurations that need them. Every numeric stage runs on
+``self.device``; the host reads small records.
 """
 
 from __future__ import annotations
@@ -20,13 +24,14 @@ from typing import Any
 import numpy as np
 import torch
 
-from vio360_tpu.config import VioConfig
-from vio360_tpu.utils.logging import StageTimer, get_logger
-
 from .. import device as device_mod
+from ..config import VioConfig
 from ..frontend import tracker
 from ..geometry import lie
+from ..imu import preintegration as pre
+from ..solver import imu_init as imu_init_mod
 from ..solver import pnp as pnp_mod
+from ..utils.logging import StageTimer, get_logger
 from . import fused, initializer, window
 
 log = get_logger("vio360.torch.estimator")
@@ -61,8 +66,14 @@ def unported_features(cfg: VioConfig) -> list[str]:
     return out
 
 
+def _rows(imu) -> np.ndarray:
+    return (np.asarray(imu, np.float64).reshape(-1, 7) if imu is not None and len(imu)
+            else np.zeros((0, 7)))
+
+
 class Estimator:
-    """Stateful facade: ``process_frame(image, timestamp)`` per frame."""
+    """Stateful facade: ``process_frame(image, timestamp, imu)`` per frame.
+    ``device=None`` means the card (``device.resolve``)."""
 
     def __init__(self, cfg: VioConfig, device: str | torch.device | None = None, seed: int = 0):
         missing = unported_features(cfg)
@@ -88,38 +99,60 @@ class Estimator:
         self.snapshots: list[dict[str, Any]] = []
         eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
         self.r_cur, self.t_cur, self.r_prev, self.t_prev = eye, zero, eye, zero
-        self.vel_cur = zero
         self.trajectory: list[tuple[float, np.ndarray, np.ndarray]] = []
         self.kf_pose_log: dict[int, tuple[np.ndarray, np.ndarray]] = {}
         self.traj_rel: list[tuple[int, np.ndarray, np.ndarray] | None] = []
         self.last_kf_fid = -1
         self.last_kf_capture: tuple[np.ndarray, np.ndarray] | None = None
         self.n_kf_host = 0
+        # ---- inertial state ----
+        self.imu_initialized = False
+        self.has_imu_stream = False
+        self.scale_refine_count = 0
+        self.vel_cur = zero
+        self.bg, self.ba = zero, zero
+        self.gravity_w = torch.tensor([0.0, 0.0, -cfg.imu.gravity_magnitude], device=dev)
+        self.imu_since_last_kf: list[np.ndarray] = []
+        self.last_imu_rows = np.zeros((0, 7))
+        self.preints = pre.stack([pre.identity_preintegration(dev)] * (cfg.window.max_keyframes - 1))
+        self.n_pairs = 0  # live keyframe-pair count
         self.timers = StageTimer()
 
     @contextlib.contextmanager
     def _stage(self, name: str):
+        """Wall time of a stage; on the card it ends in a synchronize so
+        that the time is the stage's and not its enqueue."""
         t0 = time.perf_counter()
         try:
             yield
         finally:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
             self.timers.add(name, time.perf_counter() - t0)
 
-    def _upload(self, image, timestamp) -> torch.Tensor:
+    def _upload(self, image, timestamp, imu_rows=None) -> torch.Tensor:
         cfg = self.cfg
         buf = fused.pack_frame_input(
-            np.asarray(image, np.float32), timestamp, None, cfg.imu.max_samples_per_frame,
+            np.asarray(image, np.float32), timestamp, imu_rows, cfg.imu.max_samples_per_frame,
             cfg.camera.width, frame_id=self.frame_id, transport=cfg.solver.image_transport,
         )
         return fused.to_device(buf, self.device)
 
-    def _snapshot(self, timestamp: float) -> dict[str, Any]:
+    def _snapshot(self, timestamp: float, imu_rows: np.ndarray) -> dict[str, Any]:
         t = self.track
         return {
             "uv": t.uv, "ids": torch.where(t.valid, t.ids, torch.full_like(t.ids, -1)),
             "valid": t.valid, "track_count": t.track_count, "time": timestamp,
-            "frame_id": self.frame_id,
+            "frame_id": self.frame_id, "imu": imu_rows,
         }
+
+    def _preintegrate(self, rows: np.ndarray, bg, ba, cap: int) -> pre.Preintegration:
+        """Preintegration of the last ``cap`` host IMU rows (as f32)."""
+        n = min(len(rows), cap)
+        s = torch.as_tensor(np.asarray(rows[len(rows) - n:], np.float32).reshape(n, 7),
+                            device=self.device)
+        with self._stage("preintegration"):
+            return pre.preintegrate_cfg(s, bg, ba, self.cfg.imu)
 
     def _record(self, timestamp: float, r: np.ndarray | None = None, p: np.ndarray | None = None):
         if r is None:
@@ -147,13 +180,41 @@ class Estimator:
         return FrameResult(self.frame_id, timestamp, state, np.asarray(r), np.asarray(t), is_kf,
                            n_tracked, n_inl, diag)
 
+    def _pnp_refine(self, s, r_i, t_i):
+        """PnP of a bootstrap snapshot against the current map from (r_i, t_i)."""
+        cfg = self.cfg
+        points, active, marg = fused._pnp_inputs(self.win, s["ids"], s["valid"], s["uv"],
+                                                 cfg.camera.width, cfg.camera.height,
+                                                 cfg.camera.boundary_margin)
+        with self._stage("pnp"):
+            pr = pnp_mod.solve_pnp(
+                r_i, t_i, points, s["uv"], active, marg, self.r_cb, self.t_cb, cfg.camera.width,
+                cfg.camera.height, rounds=cfg.window.pnp_rounds,
+                max_iterations=cfg.window.max_lm_iterations, min_inliers=cfg.window.pnp_min_inliers,
+            )
+        return torch.where(pr.success, pr.r_wb, r_i), torch.where(pr.success, pr.t_wb, t_i)
+
+    def _window_ba(self):
+        cfg = self.cfg
+        with self._stage("ba"):
+            self.win, res = window.window_ba(
+                self.win, self.t_bc, cfg.camera.width, cfg.camera.height,
+                cfg.camera.boundary_margin, huber_delta=cfg.window.huber_delta,
+                chi2_threshold=cfg.window.chi2_threshold,
+                max_iterations=cfg.window.max_lm_iterations,
+            )
+        return res
+
     # ------------------------------------------------------------------
 
     def process_frame(self, image, timestamp: float, imu: np.ndarray | None = None) -> FrameResult:
-        if imu is not None and len(imu):
-            raise NotImplementedError("not ported yet: visual-inertial odometry (IMU rows)")
         self.frame_id += 1
         cfg = self.cfg
+        imu_rows = _rows(imu)
+        if len(imu_rows):
+            self.imu_since_last_kf.append(imu_rows)
+            self.has_imu_stream = True
+        self.last_imu_rows = imu_rows
         h = cfg.camera.height
         ts = torch.tensor(timestamp, dtype=torch.float32, device=self.device)
         if self.img_prev is None:
@@ -161,7 +222,7 @@ class Estimator:
             with self._stage("frontend"):
                 self.track = tracker.bootstrap_frame(self.track, fused.buf_image(buf, h), ts, cfg)
             self.img_prev = buf
-            self.snapshots = [self._snapshot(timestamp)]
+            self.snapshots = [self._snapshot(timestamp, imu_rows)]
             self._record(timestamp)
             return self._result(timestamp, "bootstrapping", False, 0, 0, {})
         if not self.initialized:
@@ -172,12 +233,12 @@ class Estimator:
                     self.gen, cfg,
                 )
             self.img_prev = buf
-            return self._bootstrap_step(timestamp, int(tdiag["n_tracked"]))
+            return self._bootstrap_step(timestamp, int(tdiag["n_tracked"]), imu_rows)
         return self._tracking_step(image, timestamp)
 
-    def _bootstrap_step(self, timestamp, n_tracked) -> FrameResult:
+    def _bootstrap_step(self, timestamp, n_tracked, imu_rows) -> FrameResult:
         cfg = self.cfg
-        self.snapshots.append(self._snapshot(timestamp))
+        self.snapshots.append(self._snapshot(timestamp, imu_rows))
         if len(self.snapshots) > cfg.init.window_size:
             self.snapshots.pop(0)
         if len(self.snapshots) == cfg.init.window_size:
@@ -192,15 +253,19 @@ class Estimator:
                                        res.scale_factor.float(), res.num_valid_points.float()]).cpu()
             if bool(outcome[0]):
                 self._seed_from_init(first, last, res)
-                self._backfill_bootstrap_poses(res)
-                self._record(timestamp)
                 diag = {"median_parallax": float(outcome[1]), "scale_factor": float(outcome[2])}
+                if any(len(s["imu"]) for s in self.snapshots):
+                    # VIO: every window frame becomes a keyframe, then IMU init
+                    self._promote_window_frames(res)
+                    diag["imu_initialized"] = self._try_initialize_imu()
+                else:
+                    self._backfill_bootstrap_poses(res)
+                self._record(timestamp)
                 return self._result(timestamp, "initialized", True, n_tracked, int(outcome[3]), diag)
         self._record(timestamp)
         return self._result(timestamp, "bootstrapping", False, n_tracked, 0, {})
 
     def _seed_from_init(self, first, last, res: initializer.InitResult):
-        cfg = self.cfg
         dev = self.device
         zeros = torch.zeros(3, device=dev)
         self.win = window.add_keyframe(self.win, torch.eye(3, device=dev), zeros, zeros, zeros,
@@ -211,13 +276,7 @@ class Estimator:
         self.n_kf_host = 2
         self.win = window.add_landmarks(self.win, res.points_w, res.point_valid, last["ids"],
                                         self.win.kf_id[0])
-        with self._stage("ba"):
-            self.win, ba_res = window.window_ba(
-                self.win, self.t_bc, cfg.camera.width, cfg.camera.height,
-                cfg.camera.boundary_margin, huber_delta=cfg.window.huber_delta,
-                chi2_threshold=cfg.window.chi2_threshold,
-                max_iterations=cfg.window.max_lm_iterations,
-            )
+        ba_res = self._window_ba()
         i_last = self.n_kf_host - 1
         self.r_cur, self.t_cur = self.win.kf_r[i_last], self.win.kf_t[i_last]
         self.r_prev, self.t_prev = self.r_cur, self.t_cur
@@ -230,11 +289,9 @@ class Estimator:
                  int(res.num_valid_points), float(costs[0]), float(costs[1]))
 
     def _backfill_bootstrap_poses(self, res: initializer.InitResult) -> None:
-        """Interpolate the bootstrap window's intermediate poses between the
-        two seeded keyframes, refine each by PnP against the fresh map,
-        and anchor them to the second keyframe for export."""
-        cfg = self.cfg
-        w, h = cfg.camera.width, cfg.camera.height
+        """VO: interpolate the bootstrap window's intermediate poses between
+        the two seeded keyframes, refine each by PnP against the fresh
+        map, and anchor them to the second keyframe for export."""
         snaps = self.snapshots
         if len(snaps) < 3:
             return
@@ -246,16 +303,7 @@ class Estimator:
             alpha = (s["time"] - t_first) / max(t_last - t_first, 1e-9)
             r_i, t_i = lie.interpolate_pose(torch.eye(3, device=dev), torch.zeros(3, device=dev),
                                             res.r_wb2, res.t_wb2, alpha)
-            points, active, marg = fused._pnp_inputs(self.win, s["ids"], s["valid"], s["uv"], w, h,
-                                                     cfg.camera.boundary_margin)
-            with self._stage("pnp"):
-                pr = pnp_mod.solve_pnp(
-                    r_i, t_i, points, s["uv"], active, marg, self.r_cb, self.t_cb, w, h,
-                    rounds=cfg.window.pnp_rounds, max_iterations=cfg.window.max_lm_iterations,
-                    min_inliers=cfg.window.pnp_min_inliers,
-                )
-            r_i = torch.where(pr.success, pr.r_wb, r_i)
-            t_i = torch.where(pr.success, pr.t_wb, t_i)
+            r_i, t_i = self._pnp_refine(s, r_i, t_i)
             fid = int(s["frame_id"])
             if not 0 <= fid < len(self.trajectory):
                 continue
@@ -263,13 +311,140 @@ class Estimator:
             self.trajectory[fid] = (float(s["time"]), r_np, t_np)
             self.traj_rel[fid] = (anchor_fid, r_n.T @ r_np, r_n.T @ (t_np - t_n))
 
+    def _promote_window_frames(self, res: initializer.InitResult):
+        """VIO: rebuild the window from every bootstrap frame (interpolated
+        poses refined by PnP), with one preintegration per frame pair."""
+        cfg = self.cfg
+        dev = self.device
+        snaps = self.snapshots[-cfg.window.max_keyframes:]
+        n = len(snaps)
+        zeros = torch.zeros(3, device=dev)
+        r0, t0v = torch.eye(3, device=dev), zeros
+        t_first, t_last = snaps[0]["time"], snaps[-1]["time"]
+        self.win = window.empty_window(cfg.window.max_keyframes, cfg.window.max_landmarks,
+                                       self.capacity, dev)
+        self.win = window.add_keyframe(self.win, r0, t0v, zeros, zeros, zeros, t_first,
+                                       snaps[0]["frame_id"], snaps[0]["uv"], snaps[0]["ids"])
+        self.win = window.add_landmarks(self.win, res.points_w, res.point_valid, snaps[-1]["ids"],
+                                        self.win.kf_id[0])
+        pres = []
+        for i in range(1, n):
+            s = snaps[i]
+            if i == n - 1:
+                r_i, t_i = res.r_wb2, res.t_wb2
+            else:
+                alpha = (s["time"] - t_first) / max(t_last - t_first, 1e-9)
+                r_i, t_i = self._pnp_refine(s, *lie.interpolate_pose(r0, t0v, res.r_wb2, res.t_wb2,
+                                                                      alpha))
+            self.win = window.add_keyframe(self.win, r_i, t_i, zeros, zeros, zeros, s["time"],
+                                           s["frame_id"], s["uv"], s["ids"])
+            pres.append(self._preintegrate(s["imu"], self.bg, self.ba,
+                                           cfg.imu.max_samples_per_frame))
+        self.n_kf_host = min(n, cfg.window.max_keyframes)
+        self._set_preints(pres)
+        self._window_ba()
+        i_last = self.n_kf_host - 1
+        self.r_cur, self.t_cur = self.win.kf_r[i_last], self.win.kf_t[i_last]
+        self.r_prev, self.t_prev = self.r_cur, self.t_cur
+        self.imu_since_last_kf = []
+        self.last_kf_fid = int(snaps[-1]["frame_id"])
+        _, kf_r_h, kf_t_h = self._log_window_poses()
+        self.last_kf_capture = (kf_r_h[i_last], kf_t_h[i_last])
+
+    def _set_preints(self, pres: list) -> None:
+        n_max = self.cfg.window.max_keyframes - 1
+        pres = list(pres[:n_max])
+        self.n_pairs = len(pres)
+        pres += [pre.identity_preintegration(self.device)] * (n_max - len(pres))
+        self.preints = pre.stack(pres)
+
+    def _solve_imu_init(self, pair_valid):
+        return imu_init_mod.solve_imu_init(self.win.kf_r, self.win.kf_t, self.preints, pair_valid,
+                                           gravity_magnitude=self.cfg.imu.gravity_magnitude)
+
+    def _try_initialize_imu(self) -> bool:
+        """Gravity / scale / velocities / biases from the window, behind
+        two quality gates: the stage-1 cost per pair, and (with >= 4
+        pairs) agreement of the gravity solved on each half of the window."""
+        cfg = self.cfg
+        k = self.n_kf_host
+        if k < 3 or self.n_pairs != k - 1:
+            return False
+        with self._stage("imu_init"):
+            pair_valid = pre.pair_valid_mask(self.preints, self.n_pairs)
+            res = self._solve_imu_init(pair_valid)
+            n_pairs = max(self.n_pairs, 1)
+            use_split = (n_pairs // 2) >= 2
+            split_deg = 0.0
+            if use_split:
+                half = torch.arange(cfg.window.max_keyframes - 1, device=self.device) < n_pairs // 2
+                res_a = self._solve_imu_init(pair_valid & half)
+                res_b = self._solve_imu_init(pair_valid & ~half)
+                split_deg = np.inf
+                if bool(res_a.success) and bool(res_b.success):
+                    g_a, g_b = res_a.gravity_w.cpu().numpy(), res_b.gravity_w.cpu().numpy()
+                    ca = float(np.dot(g_a, g_b) / max(np.linalg.norm(g_a) * np.linalg.norm(g_b), 1e-9))
+                    split_deg = float(np.degrees(np.arccos(np.clip(ca, -1.0, 1.0))))
+            ok, cost1, scale = bool(res.success), float(res.stage1_cost), float(res.scale)
+        per_pair = cost1 / n_pairs
+        if (not ok or per_pair > cfg.imu.init_max_cost_per_pair
+                or split_deg > cfg.imu.init_max_gravity_split_deg):
+            log.info("IMU init rejected (cost1=%.3g/pair %.3g, gravity split %.1f deg)", cost1,
+                     per_pair, split_deg)
+            return False
+        r_wg = imu_init_mod.gravity_dir_to_rotation(res.gravity_dir)
+        self._transform_history(r_wg, scale)
+        self.win = fused.align_window(self.win, r_wg, res.scale, res.velocities)
+        self.bg, self.ba = res.bg, res.ba
+        self.gravity_w = torch.tensor([0.0, 0.0, -cfg.imu.gravity_magnitude], device=self.device)
+        self.preints = pre.update_bias(self.preints, self.bg, self.ba)
+        i_last = self.n_kf_host - 1
+        self.r_cur, self.t_cur = self.win.kf_r[i_last], self.win.kf_t[i_last]
+        self.r_prev, self.t_prev = self.r_cur, self.t_cur
+        self.vel_cur = self.win.kf_vel[i_last]
+        self.imu_initialized = True
+        _, kf_r_h, kf_t_h = self._log_window_poses()
+        if self.last_kf_capture is not None:
+            self.last_kf_capture = (kf_r_h[i_last], kf_t_h[i_last])
+        g = res.gravity_w.cpu().numpy()
+        log.info("IMU init: scale=%.4f g=(%.2f,%.2f,%.2f) bg=%s", scale, *[float(x) for x in g],
+                 np.round(res.bg.cpu().numpy(), 4))
+        return True
+
+    def _transform_history(self, r_wg, scale, t_anchor=None):
+        """Re-express the recorded trajectory, the export log and the live
+        pose in the gravity-aligned, rescaled world (anchored at the first
+        keyframe, as align_gravity_and_scale). The pose-graph edges of the
+        reference are not ported."""
+        r_gw = np.asarray(r_wg.cpu().numpy() if torch.is_tensor(r_wg) else r_wg).T
+        s = float(scale)
+        if t_anchor is None:
+            t_anchor = r_gw @ self.win.kf_t[0].cpu().numpy()
+        t_anchor = np.asarray(t_anchor)
+        xf = lambda p: t_anchor + (r_gw @ p - t_anchor) * s
+        self.trajectory = [(t, r_gw @ r, xf(p)) for (t, r, p) in self.trajectory]
+        self.kf_pose_log = {fid: (r_gw @ r, xf(p)) for fid, (r, p) in self.kf_pose_log.items()}
+        self.traj_rel = [None if e is None else (e[0], e[1], e[2] * s) for e in self.traj_rel]
+        if self.last_kf_capture is not None:
+            kr, kp = self.last_kf_capture
+            self.last_kf_capture = (r_gw @ kr, xf(kp))
+        r_gw_t = torch.as_tensor(r_gw, dtype=torch.float32, device=self.device)
+        t_a = torch.as_tensor(t_anchor, dtype=torch.float32, device=self.device)
+        self.r_cur, self.r_prev = r_gw_t @ self.r_cur, r_gw_t @ self.r_prev
+        self.t_cur = t_a + (r_gw_t @ self.t_cur - t_a) * s
+        self.t_prev = t_a + (r_gw_t @ self.t_prev - t_a) * s
+        self.vel_cur = (r_gw_t @ self.vel_cur) * s
+
     def _tracking_step(self, image, timestamp) -> FrameResult:
         cfg = self.cfg
-        buf = self._upload(image, timestamp)
+        rows = self.last_imu_rows
+        buf = self._upload(image, timestamp, rows)
         with self._stage("tracking_step"):
             self.track, r_new, t_new, v_new, bundle = fused.tracking_step(
                 self.track, self.win, self.img_prev, buf, self.gen, self.r_cur, self.t_cur,
                 self.r_prev, self.t_prev, self.vel_cur, self.r_bc, self.r_cb, self.t_cb, cfg,
+                bg=self.bg, ba=self.ba, gravity_w=self.gravity_w, use_imu=self.imu_initialized,
+                n_imu=min(len(rows), cfg.imu.max_samples_per_frame), stage=self._stage,
             )
             b = fused.unpack_bundle(bundle.cpu().numpy())
         self.img_prev = buf
@@ -285,17 +460,86 @@ class Estimator:
                            np.asarray(r_np), np.asarray(t_np), b["is_kf"], b["n_tracked"],
                            b["n_inliers"], diag)
 
+    def _kf_rows(self) -> np.ndarray:
+        return (np.concatenate(self.imu_since_last_kf) if self.imu_since_last_kf
+                else np.zeros((0, 7)))
+
     def _create_keyframe(self, timestamp, diag):
+        if self.imu_initialized == self.has_imu_stream:
+            return self._create_keyframe_fused(timestamp, diag)
+        return self._create_keyframe_pending_imu(timestamp, diag)
+
+    def _create_keyframe_fused(self, timestamp, diag):
         """The keyframe event (fused.keyframe_step) + host bookkeeping."""
         cfg = self.cfg
+        use_imu = self.imu_initialized
         max_kf = cfg.window.max_keyframes
+        was_full = self.n_kf_host == max_kf
+        n_kf_after = min(self.n_kf_host + 1, max_kf)
+        pairs_after = min(self.n_pairs + 1, max_kf - 1) if use_imu else self.n_pairs
+        do_refine = (use_imu and self.scale_refine_count < cfg.window.max_scale_refines
+                     and n_kf_after >= 3 and pairs_after == n_kf_after - 1)
+        rows = None
+        if use_imu:
+            cap = cfg.imu.max_samples_per_keyframe
+            kf_rows = self._kf_rows()
+            rows = torch.as_tensor(np.asarray(kf_rows[len(kf_rows) - min(len(kf_rows), cap):],
+                                              np.float32).reshape(-1, 7), device=self.device)
         with self._stage("keyframe_step"):
-            self.track, self.win, self.r_cur, self.t_cur, self.vel_cur, record = fused.keyframe_step(
+            (self.track, self.win, self.preints, self.bg, self.ba, self.r_cur, self.t_cur,
+             self.vel_cur, record) = fused.keyframe_step(
                 cfg, self.track, self.win, float(timestamp), self.frame_id, self.r_cur, self.t_cur,
-                self.vel_cur, self.t_bc,
+                self.vel_cur, self.t_bc, use_imu=use_imu, preints=self.preints,
+                n_pairs=self.n_pairs, was_full=was_full, do_refine=do_refine, imu_rows=rows,
+                bg=self.bg, ba=self.ba, gravity_w=self.gravity_w, stage=self._stage,
             )
             rec = fused.unpack_kf_record(record.cpu().numpy(), max_kf)
-        self.n_kf_host = min(self.n_kf_host + 1, max_kf)
+        self.n_kf_host = n_kf_after
+        self.n_pairs = pairs_after
+        self.imu_since_last_kf = []
+        if rec["refine_applied"]:
+            # the window and the live pose came out aligned; the history did not
+            self.scale_refine_count += 1
+            diag["scale_refine"] = rec["refine_s"]
+            cur = (self.r_cur, self.t_cur, self.vel_cur)
+            self._transform_history(rec["r_wg"], rec["refine_s"], t_anchor=rec["t_anchor"])
+            self.r_cur, self.t_cur, self.vel_cur = cur
+        return self._finish_keyframe(diag, rec)
+
+    def _create_keyframe_pending_imu(self, timestamp, diag):
+        """Keyframe while an IMU stream exists but IMU init is pending (it
+        was rejected at bootstrap): window BA, the new pair's
+        preintegration kept, and a retry of IMU init on the refined window."""
+        cfg = self.cfg
+        ids = torch.where(self.track.valid, self.track.ids, torch.full_like(self.track.ids, -1))
+        self.win = window.add_keyframe(self.win, self.r_cur, self.t_cur, self.vel_cur, self.bg,
+                                       self.ba, float(timestamp), self.frame_id, self.track.uv, ids)
+        self.n_kf_host = min(self.n_kf_host + 1, cfg.window.max_keyframes)
+        newp = self._preintegrate(self._kf_rows(), self.bg, self.ba,
+                                  cfg.imu.max_samples_per_keyframe)
+        n_max = cfg.window.max_keyframes - 1
+        evict = self.n_pairs == n_max
+        self.preints = pre.append(self.preints, newp, n_max - 1 if evict else self.n_pairs, evict)
+        self.n_pairs = min(self.n_pairs + 1, n_max)
+        self.imu_since_last_kf = []
+        res = self._window_ba()
+        if self.n_pairs == self.n_kf_host - 1 and self._try_initialize_imu():
+            diag["imu_initialized"] = True
+        w, h = cfg.camera.width, cfg.camera.height
+        self.track = fused._relabel_tracks(
+            self.track, fused._bad_slots(self.track, self.win.lm_slot, self.win.lm_feat_id,
+                                         res.new_bad))
+        with self._stage("triangulation"):
+            self.win, n_new, n_dropped = window.triangulate_new_landmarks(
+                self.win, self.t_bc, w, h, live_ids=self.track.ids)
+        i_last = self.n_kf_host - 1
+        self.r_cur, self.t_cur = self.win.kf_r[i_last], self.win.kf_t[i_last]
+        record = fused.kf_record(res, self.win, n_new, n_dropped)
+        return self._finish_keyframe(diag, fused.unpack_kf_record(record.cpu().numpy(),
+                                                                  cfg.window.max_keyframes))
+
+    def _finish_keyframe(self, diag, rec):
+        """Export log, keyframe anchor and diagnostics from a keyframe record."""
         i_last = self.n_kf_host - 1
         for i in range(self.n_kf_host):
             fid = int(rec["kf_id"][i])
@@ -312,7 +556,7 @@ class Estimator:
         return rec["kf_r"][i_last], rec["kf_t"][i_last]
 
     def export_trajectory(self):
-        """Trajectory with keyframes at their latest BA-refined poses and
+        """Trajectory with keyframes at their latest refined poses and
         non-keyframes re-derived from their reference keyframe."""
         ts = np.asarray([t for t, _, _ in self.trajectory])
         rs = np.stack([r for _, r, _ in self.trajectory]) if self.trajectory else np.zeros((0, 3, 3))

@@ -1,29 +1,38 @@
-"""The steady-state tracking frame and the keyframe event (VO).
+"""The steady-state tracking frame and the keyframe event (VO and VIO).
 
-Counterpart of ``vio360_tpu/estimator/fused.py`` for the monocular VO
-slice: the packed frame buffer (with the same u8/u16/f32 image
-quantization, so the first frame already matches the reference),
-``tracking_step`` without IMU, the keyframe decision, and the VO branch
-of the keyframe event. The JAX module fused each into one compiled
-dispatch; here they are plain functions whose device work is the three
-hand-written kernels (LK, PnP, window BA) plus PyTorch ops, and the
-host reads one small record per frame.
+Counterpart of ``vio360_tpu/estimator/fused.py``: the packed frame
+buffer (with the same u8/u16/f32 image quantization, so the first frame
+already matches the reference), ``tracking_step`` with constant-velocity
+or IMU prediction, the keyframe decision, and the keyframe event
+(``_kf_event_body``): window append, the keyframe-pair preintegration
+with roll on eviction, window BA or VIBA, bias re-linearization, the
+gated scale / gravity refine, outlier relabel and triangulation. The
+JAX module fused each into one compiled dispatch; here they are plain
+functions whose device work is the hand-written kernels (LK, PnP,
+window BA) plus PyTorch ops, and the host reads one small record per
+frame. The pose-graph parts of the keyframe record are not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import torch
 
-from vio360_tpu.config import VioConfig
-
+from ..config import VioConfig
 from ..frontend import tracker
 from ..geometry import camera as cam_g
 from ..geometry import lie
+from ..imu import preintegration as pre
+from ..solver import imu_init as imu_init_mod
 from ..solver import pnp as pnp_mod
 from . import initializer, window
+
+
+def _no_stage(name: str):
+    return contextlib.nullcontext()
 
 
 def _median_parallax(uv_now, ids_now, valid_now, kf_uv, kf_ids, width):
@@ -152,20 +161,28 @@ def unpack_frame_buf(frame_buf: torch.Tensor, cfg: VioConfig) -> dict:
 
 
 def tracking_step(track, win, prev_buf, frame_buf, gen: torch.Generator, r_cur, t_cur, r_prev,
-                  t_prev, vel_cur, r_bc, r_cb, t_cb, cfg: VioConfig):
-    """One VO tracking frame: constant-velocity prediction -> rotation-guess
-    LK + RANSAC front end -> landmark join -> PnP -> outlier relabel ->
-    keyframe decision. Returns (track', r_new, t_new, v_new, bundle [20])
-    with bundle laid out as in the reference (``unpack_bundle``)."""
+                  t_prev, vel_cur, r_bc, r_cb, t_cb, cfg: VioConfig, bg=None, ba=None,
+                  gravity_w=None, use_imu: bool = False, n_imu: int = 0, stage=_no_stage):
+    """One tracking frame: pose prediction (constant velocity, or with
+    ``use_imu`` the frame's ``n_imu`` IMU rows preintegrated and
+    propagated) -> rotation-guess LK + RANSAC front end -> landmark join
+    -> PnP -> outlier relabel -> keyframe decision. Returns (track',
+    r_new, t_new, v_new, bundle [20]) with bundle laid out as in the
+    reference (``unpack_bundle``). ``stage(name)`` times a sub-stage."""
     w, h = cfg.camera.width, cfg.camera.height
     fb = unpack_frame_buf(frame_buf, cfg)
     img_prev, img_next = buf_image(prev_buf, h), fb["img"]
     r_pred, t_pred = _predict_cv(r_cur, t_cur, r_prev, t_prev)
+    v_pred = vel_cur
+    if use_imu and n_imu:
+        with stage("preintegration"):
+            pf = pre.preintegrate_cfg(fb["imu_samples"][:n_imu], bg, ba, cfg.imu)
+        r_pred, t_pred, v_pred = pre.predict_state(r_cur, t_cur, vel_cur, pf, gravity_w)
     r_cc_pred = None
     if cfg.optical_flow.use_rotation_guess:
         r_cc_pred = (r_pred @ r_bc).T @ (r_cur @ r_bc)
     track, _, tdiag = tracker.track_frame(track, img_prev, img_next, fb["timestamp"], gen, cfg,
-                                          r_cc_pred=r_cc_pred)
+                                          r_cc_pred=r_cc_pred, guess_from_imu=use_imu)
 
     ids = torch.where(track.valid, track.ids, torch.full_like(track.ids, -1))
     points, active, marg = _pnp_inputs(win, ids, track.valid, track.uv, w, h,
@@ -188,7 +205,7 @@ def tracking_step(track, win, prev_buf, frame_buf, gen: torch.Generator, r_cur, 
         f(res.success), f(is_kf), f(res.num_inliers), f(tdiag["n_tracked"]), f(res.final_cost),
         f(par), f(n_shared), f(n_active), f(res.r_wb), f(res.t_wb),
     ])
-    return track, res.r_wb, res.t_wb, vel_cur, bundle
+    return track, res.r_wb, res.t_wb, v_pred, bundle
 
 
 def unpack_bundle(b: np.ndarray) -> dict:
@@ -210,39 +227,111 @@ def _bad_slots(track, lm_slot, lm_feat_id, new_bad):
     return track.ids == bad_id
 
 
-def keyframe_step(cfg: VioConfig, track, win, timestamp, frame_id, r_cur, t_cur, vel_cur, t_bc):
-    """The VO branch of the reference's keyframe event: add_keyframe ->
-    window BA -> outlier relabel -> triangulation -> packed record.
-    Returns (track', win', r', t', vel', record): the record holds the
-    VO fields of the reference's keyframe record (``unpack_kf_record``)."""
+def align_window(win: window.WindowState, r_wg, scale, velocities, applied=None):
+    """The window's live keyframes (with ``velocities``) and landmarks in
+    the gravity-aligned world rescaled about the first keyframe
+    (``align_gravity_and_scale``); with ``applied`` (a device bool) only
+    where it holds."""
+    kf_r2, kf_t2, vel2, pts2 = imu_init_mod.align_gravity_and_scale(
+        win.kf_r, win.kf_t, velocities, win.lm_pos, r_wg, scale)
+    kf_ok, lm_ok = win.kf_id >= 0, win.lm_alive
+    if applied is not None:
+        kf_ok, lm_ok = kf_ok & applied, lm_ok & applied
+    return dataclasses.replace(
+        win, kf_r=torch.where(kf_ok[:, None, None], kf_r2, win.kf_r),
+        kf_t=torch.where(kf_ok[:, None], kf_t2, win.kf_t),
+        kf_vel=torch.where(kf_ok[:, None], vel2, win.kf_vel),
+        lm_pos=torch.where(lm_ok[:, None], pts2, win.lm_pos),
+    )
+
+
+def keyframe_step(cfg: VioConfig, track, win, timestamp, frame_id, r_cur, t_cur, vel_cur, t_bc,
+                  use_imu: bool = False, preints=None, n_pairs: int = 0, was_full: bool = False,
+                  do_refine: bool = False, imu_rows=None, bg=None, ba=None, gravity_w=None,
+                  stage=_no_stage):
+    """The keyframe event (``_kf_event_body``): add_keyframe -> [VIO: the
+    new pair's preintegration, rolled in on eviction] -> window BA or
+    VIBA -> [VIO: bias re-linearization of every pair, the scale /
+    gravity refine when ``do_refine`` and the solve passes its gates] ->
+    outlier relabel -> triangulation -> packed record.
+
+    Returns (track', win', preints', bg', ba', r', t', vel', record);
+    the record holds the VO / VIO fields of the reference's keyframe
+    record (``unpack_kf_record``)."""
     dev = win.kf_r.device
     w, h = cfg.camera.width, cfg.camera.height
-    max_kf = cfg.window.max_keyframes
+    wcfg, icfg = cfg.window, cfg.imu
+    max_kf = wcfg.max_keyframes
     zeros = torch.zeros(3, device=dev)
+    if bg is None:
+        bg, ba = zeros, zeros
     ids = torch.where(track.valid, track.ids, torch.full_like(track.ids, -1))
-    win = window.add_keyframe(win, r_cur, t_cur, vel_cur, zeros, zeros, timestamp, frame_id,
-                              track.uv, ids)
-    win, res = window.window_ba(
-        win, t_bc, w, h, cfg.camera.boundary_margin, huber_delta=cfg.window.huber_delta,
-        chi2_threshold=cfg.window.chi2_threshold, max_iterations=cfg.window.max_lm_iterations,
-    )
+    win = window.add_keyframe(win, r_cur, t_cur, vel_cur, bg, ba, timestamp, frame_id, track.uv, ids)
+    if use_imu:
+        with stage("preintegration"):
+            newp = pre.preintegrate_cfg(imu_rows, bg, ba, icfg)
+        idx = max_kf - 2 if was_full else min(n_pairs, max_kf - 2)
+        preints = pre.append(preints, newp, idx, was_full)
+        pair_valid = pre.pair_valid_mask(preints, min(n_pairs + 1, max_kf - 1))
+        with stage("viba"):
+            win, res = window.window_viba(
+                win, t_bc, preints, pair_valid, gravity_w, bg, ba, w, h, cfg.camera.boundary_margin,
+                huber_delta=wcfg.huber_delta, chi2_threshold=wcfg.chi2_threshold,
+                max_iterations=wcfg.viba_max_iterations, inertial_weight=wcfg.viba_inertial_weight,
+                bg_prior_weight=wcfg.viba_bg_prior_weight, ba_prior_weight=wcfg.viba_ba_prior_weight,
+            )
+        bg, ba = res.bg, res.ba
+        preints = pre.update_bias(preints, bg, ba)
+    else:
+        win, res = window.window_ba(
+            win, t_bc, w, h, cfg.camera.boundary_margin, huber_delta=wcfg.huber_delta,
+            chi2_threshold=wcfg.chi2_threshold, max_iterations=wcfg.max_lm_iterations,
+        )
+
+    # periodic scale / gravity refine (the host's do_refine flag + the
+    # solution's sanity bounds; a refine that is not asked for changes
+    # nothing, so it is not solved)
+    applied = refine_s = r_wg = t_anchor = None
+    if use_imu and do_refine:
+        with stage("imu_init"):
+            ri = imu_init_mod.solve_imu_init(win.kf_r, win.kf_t, preints, pair_valid,
+                                             gravity_magnitude=icfg.gravity_magnitude)
+        applied = ri.success & (ri.scale > 0.5) & (ri.scale < 2.0)
+        refine_s = torch.where(applied, ri.scale, torch.ones_like(ri.scale))
+        r_wg = torch.where(applied, imu_init_mod.gravity_dir_to_rotation(ri.gravity_dir),
+                           torch.eye(3, device=dev))
+        t_anchor = r_wg.T @ win.kf_t[0]  # the anchor before the alignment
+        win = align_window(win, r_wg, refine_s, win.kf_vel, applied)
+
     track = _relabel_tracks(track, _bad_slots(track, win.lm_slot, win.lm_feat_id, res.new_bad))
     win, n_new, n_dropped = window.triangulate_new_landmarks(win, t_bc, w, h, live_ids=track.ids)
     i_last = torch.clamp(win.n_kf - 1, 0, max_kf - 1).to(torch.int64)
-    f = lambda x: x.to(torch.float32).reshape(-1)
-    record = torch.cat([
+    vel_out = win.kf_vel[i_last] if use_imu else vel_cur
+    record = kf_record(res, win, n_new, n_dropped, applied, refine_s, r_wg, t_anchor)
+    return track, win, preints, bg, ba, win.kf_r[i_last], win.kf_t[i_last], vel_out, record
+
+
+def kf_record(res, win, n_new, n_dropped, applied=None, refine_s=None, r_wg=None, t_anchor=None):
+    """The keyframe event's flat f32 record (``unpack_kf_record``); the
+    refine fields default to "not applied"."""
+    dev = win.kf_r.device
+    f = lambda x: torch.as_tensor(x, device=dev).to(torch.float32).reshape(-1)
+    return torch.cat([
         f(res.final_cost), f(res.num_inliers), f(n_new), f(n_dropped), f(win.lm_alive.sum()),
-        f((win.lm_marg & win.lm_alive).sum()), f(win.kf_id), f(win.kf_r), f(win.kf_t),
+        f((win.lm_marg & win.lm_alive).sum()), f(False if applied is None else applied),
+        f(1.0 if refine_s is None else refine_s), f(torch.eye(3) if r_wg is None else r_wg),
+        f(win.kf_t[0] if t_anchor is None else t_anchor), f(win.kf_id), f(win.kf_r), f(win.kf_t),
     ])
-    return track, win, win.kf_r[i_last], win.kf_t[i_last], vel_cur, record
 
 
 def unpack_kf_record(rec: np.ndarray, max_kf: int) -> dict:
     """Host-side unpack of keyframe_step's flat record."""
-    k, o = max_kf, 6
+    k, o = max_kf, 20
     return {
         "ba_cost": float(rec[0]), "ba_inliers": int(rec[1]), "n_new": int(rec[2]),
         "n_dropped": int(rec[3]), "n_lm_alive": int(rec[4]), "n_lm_marg": int(rec[5]),
+        "refine_applied": bool(rec[6] > 0.5), "refine_s": float(rec[7]),
+        "r_wg": rec[8:17].reshape(3, 3).copy(), "t_anchor": rec[17:20].copy(),
         "kf_id": rec[o:o + k].astype(np.int32),
         "kf_r": rec[o + k:o + 10 * k].reshape(k, 3, 3).copy(),
         "kf_t": rec[o + 10 * k:o + 13 * k].reshape(k, 3).copy(),

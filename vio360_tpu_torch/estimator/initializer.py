@@ -13,8 +13,7 @@ import dataclasses
 
 import torch
 
-from vio360_tpu.config import VioConfig
-
+from ..config import VioConfig
 from ..geometry import camera as cam
 from ..geometry import essential as ess
 from ..geometry import triangulation

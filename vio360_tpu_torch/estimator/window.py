@@ -1,7 +1,6 @@
 """Sliding-window map state as fixed-capacity tensors.
 
-Counterpart of ``vio360_tpu/estimator/window.py`` (all but
-``window_viba``, which belongs to the VIO slice): keyframes oldest-first
+Counterpart of ``vio360_tpu/estimator/window.py``: keyframes oldest-first
 in ``[K]`` slots, each with a snapshot of the tracker slots; landmark
 observations derived by an id-equality join; eviction re-references or
 kills landmarks of the evicted keyframe. ``add_keyframe`` computes the
@@ -20,6 +19,7 @@ from ..geometry import lie
 from ..geometry import triangulation
 from ..ops.ransac import compact_indices
 from ..solver import ba as ba_mod
+from ..solver import viba as viba_mod
 from ..frontend.tracker import scatter_drop
 
 
@@ -197,29 +197,63 @@ def triangulate_new_landmarks(win: WindowState, t_bc, width: int, height: int, l
     return win, torch.minimum(n_want, n_free), n_dropped
 
 
-def window_ba(win: WindowState, t_bc, width: int, height: int, boundary_margin: float,
-              huber_delta: float = 1.0, chi2_threshold: float = 5.991,
-              max_iterations: int = 50):
-    """Local BA over the window: fix the oldest keyframe + marginalized
-    landmarks, boundary-filtered observations; write back poses/points
-    and kill newly-bad landmarks."""
+def _window_problem(win: WindowState, t_bc, width: int, height: int, boundary_margin: float):
+    """The window solve's inputs: boundary-filtered observations, the
+    oldest keyframe and empty slots fixed, dead and marginalized
+    landmarks fixed, and the body-to-camera extrinsics."""
     obs_uv, obs_mask = observations(win)
     obs_mask = obs_mask & ~cam.is_near_boundary(obs_uv, width, height, boundary_margin)
     kf_ok = win.kf_id >= 0
     fixed_pose = ~kf_ok | (torch.arange(win.max_kf, device=kf_ok.device) == 0)
     fixed_point = ~win.lm_alive | win.lm_marg
     r_bc, p_bc = t_bc[:3, :3], t_bc[:3, 3]
-    res = ba_mod.run_ba(
-        win.kf_r, win.kf_t, win.lm_pos, obs_uv, obs_mask, fixed_pose, fixed_point, win.lm_marg,
-        r_bc.T, -(r_bc.T @ p_bc), width, height, huber_delta=huber_delta,
-        chi2_threshold=chi2_threshold, max_iterations=max_iterations,
-    )
-    win = dataclasses.replace(
+    return obs_uv, obs_mask, kf_ok, fixed_pose, fixed_point, r_bc.T, -(r_bc.T @ p_bc)
+
+
+def _write_back(win: WindowState, kf_ok, res, **extra) -> WindowState:
+    return dataclasses.replace(
         win,
         # renorm: window rotations survive many solves; keep them on SO(3)
         kf_r=torch.where(kf_ok[:, None, None], lie.so3_renormalize(res.r_wb), win.kf_r),
         kf_t=torch.where(kf_ok[:, None], res.t_wb, win.kf_t),
         lm_pos=torch.where((win.lm_alive & ~win.lm_marg)[:, None], res.points, win.lm_pos),
-        lm_alive=win.lm_alive & ~res.new_bad,
+        lm_alive=win.lm_alive & ~res.new_bad, **extra,
     )
+
+
+def window_ba(win: WindowState, t_bc, width: int, height: int, boundary_margin: float,
+              huber_delta: float = 1.0, chi2_threshold: float = 5.991,
+              max_iterations: int = 50):
+    """Local BA over the window: fix the oldest keyframe + marginalized
+    landmarks, boundary-filtered observations; write back poses/points
+    and kill newly-bad landmarks."""
+    obs_uv, obs_mask, kf_ok, fixed_pose, fixed_point, r_cb, t_cb = _window_problem(
+        win, t_bc, width, height, boundary_margin)
+    res = ba_mod.run_ba(
+        win.kf_r, win.kf_t, win.lm_pos, obs_uv, obs_mask, fixed_pose, fixed_point, win.lm_marg,
+        r_cb, t_cb, width, height, huber_delta=huber_delta, chi2_threshold=chi2_threshold,
+        max_iterations=max_iterations,
+    )
+    return _write_back(win, kf_ok, res), res
+
+
+def window_viba(win: WindowState, t_bc, preints, pair_valid, gravity_w, bg, ba_bias, width: int,
+                height: int, boundary_margin: float, huber_delta: float = 1.0,
+                chi2_threshold: float = 5.991, max_iterations: int = 20,
+                inertial_weight: float = 1.0, bg_prior_weight: float = 50.0,
+                ba_prior_weight: float = 50.0):
+    """Visual-inertial local BA over the window: window_ba's gauge and
+    outlier rules plus inertial factors between consecutive keyframes;
+    writes back poses, velocities and points and kills newly-bad landmarks."""
+    obs_uv, obs_mask, kf_ok, fixed_pose, fixed_point, r_cb, t_cb = _window_problem(
+        win, t_bc, width, height, boundary_margin)
+    res = viba_mod.run_viba(
+        win.kf_r, win.kf_t, win.kf_vel, bg, ba_bias, win.lm_pos, obs_uv, obs_mask, fixed_pose,
+        fixed_point, win.lm_marg, preints, pair_valid, gravity_w, r_cb, t_cb, width, height,
+        huber_delta=huber_delta, chi2_threshold=chi2_threshold, max_iterations=max_iterations,
+        inertial_weight=inertial_weight, bg_prior_weight=bg_prior_weight,
+        ba_prior_weight=ba_prior_weight,
+    )
+    win = _write_back(win, kf_ok, res,
+                      kf_vel=torch.where(kf_ok[:, None], res.vel, win.kf_vel))
     return win, res

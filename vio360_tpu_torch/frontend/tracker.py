@@ -14,8 +14,7 @@ import math
 
 import torch
 
-from vio360_tpu.config import VioConfig
-
+from ..config import VioConfig
 from ..geometry import camera as cam
 from ..ops import lk, ransac, shi_tomasi
 
@@ -113,25 +112,30 @@ def _rotation_guess(uv, r_cc, width, height):
 
 
 def track_frame(state: TrackState, img_prev, img_next, timestamp, gen: torch.Generator,
-                cfg: VioConfig, r_cc_pred=None):
+                cfg: VioConfig, r_cc_pred=None, guess_from_imu: bool = False):
     """One front-end step. Returns (new_state, R_prev_to_curr, diag).
-    (The IMU-guided top-level skip of the reference belongs to the VIO
-    slice.)"""
+
+    ``r_cc_pred`` (prev-camera to cur-camera rotation) seeds LK with the
+    rotation-predicted flow; ``guess_skips_top_level`` drops the top
+    pyramid level only when that prediction comes from the gyro
+    (``guess_from_imu``)."""
     c, f = cfg.camera, cfg.features
+    of = cfg.optical_flow
     w, h = c.width, c.height
     dev = state.uv.device
-    if cfg.optical_flow.photometric_compensation:
+    if of.photometric_compensation:
         img_next = _row_gain_compensate(img_prev, img_next)
     uv_guess = None
-    if r_cc_pred is not None and cfg.optical_flow.use_rotation_guess:
+    num_levels = of.max_level
+    if r_cc_pred is not None and of.use_rotation_guess:
         uv_guess = _rotation_guess(state.uv, r_cc_pred, w, h)
+        if guess_from_imu and of.guess_skips_top_level and num_levels >= 2:
+            num_levels -= 1
 
     # 1. LK track
     uv_new, status, err = lk.track(
-        img_prev, img_next, state.uv, state.valid, uv_guess=uv_guess,
-        num_levels=cfg.optical_flow.max_level,
-        half_win=cfg.optical_flow.window_size // 2, iters=cfg.optical_flow.max_iterations,
-        eps=cfg.optical_flow.epsilon,
+        img_prev, img_next, state.uv, state.valid, uv_guess=uv_guess, num_levels=num_levels,
+        half_win=of.window_size // 2, iters=of.max_iterations, eps=of.epsilon, backend=of.backend,
     )
     tracked = state.valid & status
     n_tracked = tracked.sum()

@@ -81,6 +81,17 @@ def so3_log(r: torch.Tensor) -> torch.Tensor:
     )
 
 
+def so3_right_jacobian(phi: torch.Tensor) -> torch.Tensor:
+    """Right Jacobian Jr(phi): exp(phi + dphi) ~ exp(phi) exp(Jr dphi)."""
+    theta2, theta, k, k2, small = _coefs(phi)
+    one = torch.ones_like(theta)
+    safe_t2 = torch.where(small, one, theta2)
+    safe_t3 = torch.where(small, one, theta2 * theta)
+    a = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / safe_t2)
+    b = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (theta - torch.sin(theta)) / safe_t3)
+    return _eye_like(phi) - a * k + b * k2
+
+
 def _se3_v_matrix(phi: torch.Tensor) -> torch.Tensor:
     theta2, theta, k, k2, small = _coefs(phi)
     one = torch.ones_like(theta)

@@ -8,6 +8,7 @@ default never applies and the sums round like the reference's.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _K5 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
@@ -49,3 +50,27 @@ def scharr_gradients(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     sh = s0 * p[:, 0:-2] + s1 * p[:, 1:-1] + s2 * p[:, 2:]
     iy = 0.5 * (sh[2:] - sh[0:-2])
     return ix.contiguous(), iy.contiguous()
+
+
+# Banded-operator form, used by the matmul-gather LK (ops/lk_matmul.py):
+# each level is L @ img @ R with constant numpy f32 operators whose
+# entries are dyadic rationals (exact).
+
+
+def blur_decimate_matrix(n: int, wrap: bool) -> np.ndarray:
+    """(ceil(n/2), n) operator: 5-tap binomial blur then 2x decimation;
+    ``wrap`` = ERP-seam wraparound (horizontal), else edge clamp."""
+    m = np.zeros((n, n))
+    for t in range(-2, 3):
+        for i in range(n):
+            j = (i + t) % n if wrap else min(max(i + t, 0), n - 1)
+            m[i, j] += _K5[t + 2]
+    return m[::2].astype(np.float32)
+
+
+def wrap_pad_matrix(n_out: int, n: int) -> np.ndarray:
+    """(n_out, n) selection: row r reads src (r mod n), the append-only
+    horizontal wrap padding to a 128-aligned width."""
+    m = np.zeros((n_out, n))
+    m[np.arange(n_out), np.arange(n_out) % n] = 1.0
+    return m.astype(np.float32)

@@ -6,9 +6,9 @@ Counterpart of the renderers in ``tests/synthetic.py`` (``make_panorama``,
 ``tools/make_synthetic_dataset.py`` (``make_dataset``), in numpy and
 torch, so a machine without JAX can render the same sequences. The
 analytic trajectory is imported from the tool itself (numpy only at
-module level). ``make_dataset`` writes VO sequences: the IMU stream and
-the photometric / dynamic nuisance options of the tool belong to later
-slices.
+module level). ``make_dataset`` writes the tool's noise-free sequence,
+images and IMU stream; the tool's noise and photometric / dynamic
+nuisance options belong to later slices.
 """
 
 from __future__ import annotations
@@ -115,22 +115,43 @@ def render_point_image(points_w: np.ndarray, r_wc: np.ndarray, t_wc: np.ndarray,
 
 def make_dataset(out_dir: str, frames: int = 40, width: int = 480, height: int = 240,
                  points: int = 500, seed: int = 11, fps: float = 10.0, imu_hz: float = 200.0,
-                 accel_scale: float = 1.0, yaw_rate: float = 0.25, texture: bool = False,
-                 texture_radius: float = 6.0, device=None) -> dict:
-    """Write a VO sequence in the reference layout (images/*.npy,
-    cam_timestamps.txt, groundtruth.tum) along the tool's analytic
-    trajectory; the same frames as ``tools/make_synthetic_dataset.py``
-    with its default nuisances off. Returns the ground truth."""
-    from vio360_tpu.io import trajectory as tio
+                 accel_scale: float = 1.0, yaw_rate: float = 0.25, tilt=(0.06, -0.04),
+                 texture: bool = False, texture_radius: float = 6.0, device=None) -> dict:
+    """Write a sequence in the reference layout (images/*.npy,
+    cam_timestamps.txt, imu_data.csv, groundtruth.tum) along the tool's
+    analytic trajectory: the same frames and IMU rows as
+    ``tools/make_synthetic_dataset.py`` with its noise and nuisances off
+    (gravity tilted by ``tilt``, accelerometer from the analytic
+    derivative, gyro from the midpoint log of the rotation increments).
+    Returns the ground truth."""
+    from .io import trajectory as tio
+    from .solver.imu_init import gravity_dir_to_rotation
 
     os.makedirs(os.path.join(out_dir, "images"), exist_ok=True)
     pts = make_point_world(seed, points, radius=(3.0, 9.0))
     dt = 1.0 / imu_hz
     per_frame = int(round(imu_hz / fps))
     ts = np.arange((frames - 1) * per_frame + 1) * dt
-    p_w, _, _, phi = _analytic_trajectory()(ts, accel_scale, yaw_rate)
+    p_w, _, a_w, phi = _analytic_trajectory()(ts, accel_scale, yaw_rate)
+    r_all = lie.so3_exp(torch.as_tensor(phi, dtype=torch.float32)).numpy()
+
+    r_wg = gravity_dir_to_rotation(torch.as_tensor(tilt, dtype=torch.float32)).numpy()
+    g_w = r_wg @ np.array([0.0, 0.0, -9.81])
+    rows = np.zeros((len(ts), 7), np.float64)
+    rows[:, 0] = ts
+    dr = np.einsum("tij,tik->tjk", r_all[:-2], r_all[2:])  # R_i^T R_{i+2}
+    omega_mid = lie.so3_log(torch.as_tensor(dr)).numpy() / (2 * dt)
+    rows[1:-1, 4:7] = omega_mid
+    rows[0, 4:7] = omega_mid[0]
+    rows[-1, 4:7] = omega_mid[-1]
+    rows[:, 1:4] = np.einsum("tij,tj->ti", r_all.transpose(0, 2, 1), a_w - g_w)
+    with open(os.path.join(out_dir, "imu_data.csv"), "w") as f:
+        f.write("timestamp,ax,ay,az,gx,gy,gz\n")
+        for row in rows:
+            f.write(",".join(f"{v:.9f}" for v in row) + "\n")
+
     frame_idx = np.arange(frames) * per_frame
-    r_wb = lie.so3_exp(torch.as_tensor(phi[frame_idx], dtype=torch.float32)).numpy()
+    r_wb = r_all[frame_idx]
     p_f = p_w[frame_idx].astype(np.float32)
     stamps = ts[frame_idx]
     with open(os.path.join(out_dir, "cam_timestamps.txt"), "w") as f:
