@@ -11,10 +11,15 @@ Phases (any failure raises and the script exits non-zero):
    ``vio360_tpu_torch/csrc``, one process per source, all at once
    (ptxas register / shared-memory summary);
 3. kernels: each kernel (K1-K5) against its plain PyTorch version on the
-   card at the main paths' shapes, with the stated tolerances, median
-   times (CUDA events, after warm-up), the least time the card could
+   card at the main paths' shapes, with the stated tolerances, the
+   kernel's median device time per launch (torch.profiler) beside its
+   wrapper's (CUDA events around the call, after warm-up), the least time the card could
    take for the same work, and the time of one PyTorch call computing
-   the same function where there is one;
+   the same function where there is one; K1 and K2 twice on the same
+   inputs must return equal tensors and iteration counts; K2 (one
+   cluster of 16 CTAs) is also timed on a sliding-window problem (each
+   landmark seen by 3 consecutive keyframes of 10); K4
+   is timed alone on prepared buffers and with its wrapper;
 4. lk_matmul: the matmul-gather LK on the card against the same call on
    the CPU;
 5. the VO slice: render the 40-frame 960x480 textured sequence (seed 11)
@@ -91,6 +96,26 @@ def timed_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, kernel: str, reps: int) -> float:
+    """Median device time (ms) of one launch of the kernel whose name
+    contains ``kernel``, over ``reps`` calls of ``fn`` (torch.profiler's
+    device events, after one warm-up call): the kernel alone, without the
+    host work of its wrapper."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [(e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    check(len(times) == reps, f"the profiler saw {len(times)} launches of {kernel}, expected {reps}")
+    return statistics.median(times)
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -126,6 +151,10 @@ def phase_build():
         for line in cuda_build.PTXAS_LOG[lib].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[ptxas] {line.strip()}")
+    from vio360_tpu_torch.solver import ba_cuda
+
+    for k in (10, 16):
+        log(f"[K2 launch shape K={k}] {ba_cuda.ba_launch_info(k)}")
 
 
 def _texture_pair(dev):
@@ -142,12 +171,72 @@ def _texture_pair(dev):
     return img0, img1
 
 
-def phase_kernels(dev):
-    """Each kernel vs its plain version at main-path shapes -> records."""
+def pnp_problem(dev, m: int = 1024) -> tuple:
+    """``pnp_solve``'s arguments for K1's main-path shape: M landmarks in
+    front of the camera, 0.5 px noise, 60 gross outliers, 90% active and
+    5% marginalized slots, from seed 9."""
     import numpy as np
     import torch
 
     from vio360_tpu_torch.geometry import camera as cam, lie
+
+    rng = np.random.default_rng(9)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    pts = t(rng.uniform(-5, 5, (m, 3)) + np.array([0, 0, 7.0]))
+    r_true = lie.so3_exp(t([0.03, -0.02, 0.01]))
+    t_true = t([0.15, -0.1, 0.2])
+    r_cb, t_cb = lie.so3_exp(t([0.01, 0.02, -0.01])), t([0.02, 0.01, 0.0])
+    p_c = ((pts - t_true) @ r_true) @ r_cb.T + t_cb
+    obs = cam.project(p_c, 960, 480) + t(rng.standard_normal((m, 2)) * 0.5)
+    out_idx = torch.as_tensor(rng.choice(m, 60, replace=False), device=dev)
+    obs[out_idx] += t(rng.uniform(30, 60, (60, 2)))
+    active = torch.as_tensor(rng.random(m) < 0.9, device=dev)
+    marg = torch.as_tensor(rng.random(m) < 0.05, device=dev)
+    return (torch.eye(3, device=dev), torch.zeros(3, device=dev), pts, obs, active, marg, 1e-4,
+            r_cb, t_cb, 960, 480, 1.0, 1.0, 5.991, 4, 50)
+
+
+def ba_problem(dev, k: int, seed: int, window: int | None = None) -> tuple:
+    """``ba_solve``'s arguments (before ``max_iterations``) for K2's
+    main-path shape: K keyframes, M = 2048 landmarks, 70% of the
+    (keyframe, landmark) pairs observed -- or with ``window`` each
+    landmark seen by that many consecutive keyframes, as in the sliding
+    window -- the oldest pose and 10% of the landmarks fixed."""
+    import numpy as np
+    import torch
+
+    from vio360_tpu_torch.geometry import camera as cam, lie
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    mm = 2048
+    pts = t(rng.uniform(-5, 5, (mm, 3)) + np.array([0, 0, 7.0]))
+    rs = lie.so3_exp(t(rng.uniform(-0.05, 0.05, (k, 3))))
+    ts = t(np.cumsum(rng.uniform(-0.05, 0.08, (k, 3)), 0))
+    rcb, tcb = lie.so3_exp(t([0.02, -0.01, 0.03])), t([0.01, 0.0, -0.02])
+    p_b = torch.einsum("kji,mj->kmi", rs, pts) - torch.einsum("kji,kj->ki", rs, ts)[:, None]
+    uv = cam.project(torch.einsum("ij,kmj->kmi", rcb, p_b) + tcb, 960, 480)
+    uv = uv + t(rng.standard_normal((k, mm, 2)) * 0.5)
+    if window is None:
+        mask = torch.as_tensor(rng.random((k, mm)) < 0.7, device=dev)
+    else:
+        first = rng.integers(0, k - window + 1, mm)
+        kk = np.arange(k)[:, None]
+        mask = torch.as_tensor((kk >= first) & (kk < first + window), device=dev)
+    fixed_pose = torch.zeros(k, dtype=torch.bool, device=dev)
+    fixed_pose[0] = True
+    fixed_point = torch.as_tensor(rng.random(mm) < 0.1, device=dev)
+    ts_p = ts + t(rng.normal(0, 0.03, (k, 3)))
+    ts_p[0] = ts[0]
+    return (rs, ts_p, pts, uv, mask.float(), fixed_pose, fixed_point, 1e-4, rcb, tcb, 960, 480,
+            1.0, 1.0, False)
+
+
+def phase_kernels(dev):
+    """Each kernel vs its plain version at main-path shapes -> records."""
+    import torch
+
+    from vio360_tpu_torch.geometry import camera as cam
     from vio360_tpu_torch.ops import lk_cuda, shi_tomasi
     from vio360_tpu_torch.solver import ba_cuda
 
@@ -159,7 +248,7 @@ def phase_kernels(dev):
                                      torch.zeros(1, dtype=torch.bool, device=dev), max_new=1024,
                                      min_distance=8.0, quality_level=0.001)
     check(uv.shape == (1024, 2) and int(valid.sum()) > 500, "LK: too few features to track")
-    errs, ms, plain_ms = [], [], []
+    errs, ms, wrapper_ms, plain_ms = [], [], [], []
     for num_levels in (3, 2):
         args = (img0, img1, uv, valid, None, num_levels, 10, 30, 0.01)
         uv_k, st_k, _ = lk_cuda.track(*args)
@@ -180,33 +269,24 @@ def phase_kernels(dev):
             f"(max |duv| there {float(diff[dropped].max()) if bool(dropped.any()) else 0.0:.3e} px)")
         check(n_k >= 0.98 * n_p and err < 1e-2, f"K4 disagrees at {num_levels + 1} levels")
         errs.append(err)
-        ms.append(timed_ms(lambda: lk_cuda.track(*args), 20))
+        prep = lk_cuda.prepare(img0, img1, uv, valid, None, num_levels)
+        ms.append(device_ms(lambda: lk_cuda.launch(prep, 10, 30, 0.01), "lk_kernel", 20))
+        wrapper_ms.append(timed_ms(lambda: lk_cuda.track(*args), 20))
         plain_ms.append(timed_ms(lambda: lk_cuda.track_plain(*args), 3))
-        log(f"[K4 lk_pyr levels={num_levels + 1}] {ms[-1]:.3f} ms vs plain {plain_ms[-1]:.3f} ms")
+        log(f"[K4 lk_pyr levels={num_levels + 1}] kernel {ms[-1]:.3f} ms, wrapper (pyramids, "
+            f"gradients, buffers, kernel) {wrapper_ms[-1]:.3f} ms vs plain {plain_ms[-1]:.3f} ms")
     # bytes: the 4 pyramids (I, J, Ix, Iy; 4 levels) read once + per-feature
     # in/out; operations: template, gradients and one Gauss-Newton step per
     # feature and level (a lower bound: the step count depends on the data)
     n_live = int(valid.sum())
     pyr_px = sum((960 >> k) * (480 >> k) for k in range(4))
-    out["lk_pyr"] = dict(max_abs_err=max(errs), ms=ms[0], plain_ms=plain_ms[0], library_ms=None,
+    out["lk_pyr"] = dict(max_abs_err=max(errs), ms=ms[0], wrapper_ms=wrapper_ms[0],
+                         plain_ms=plain_ms[0], library_ms=None,
                          **bound(4 * pyr_px * 4 + 1024 * 29, n_live * 4 * 441 * (3 * 8 + 6 + 14)))
 
     # ---- K1: PnP at M = 1024 ----
-    rng = np.random.default_rng(9)
     m = 1024
-    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    pts = t(rng.uniform(-5, 5, (m, 3)) + np.array([0, 0, 7.0]))
-    r_true = lie.so3_exp(t([0.03, -0.02, 0.01]))
-    t_true = t([0.15, -0.1, 0.2])
-    r_cb, t_cb = lie.so3_exp(t([0.01, 0.02, -0.01])), t([0.02, 0.01, 0.0])
-    p_c = ((pts - t_true) @ r_true) @ r_cb.T + t_cb
-    obs = cam.project(p_c, 960, 480) + t(rng.standard_normal((m, 2)) * 0.5)
-    out_idx = torch.as_tensor(rng.choice(m, 60, replace=False), device=dev)
-    obs[out_idx] += t(rng.uniform(30, 60, (60, 2)))
-    active = torch.as_tensor(rng.random(m) < 0.9, device=dev)
-    marg = torch.as_tensor(rng.random(m) < 0.05, device=dev)
-    pargs = (torch.eye(3, device=dev), torch.zeros(3, device=dev), pts, obs, active, marg, 1e-4,
-             r_cb, t_cb, 960, 480, 1.0, 1.0, 5.991, 4, 50)
+    pargs = pnp_problem(dev, m)
     kr = ba_cuda.pnp_solve(*pargs)
     pr = ba_cuda._pnp_plain(*pargs)
     torch.cuda.synchronize()
@@ -215,63 +295,75 @@ def phase_kernels(dev):
     dinl = abs(int(kr[4]) - int(pr[4]))
     log(f"[K1 lm_pnp M={m}] |dt| {dt_:.3e} |dR| {dr_:.3e} inliers {int(kr[4])} vs {int(pr[4])}")
     check(dt_ < 5e-3 and dr_ < 5e-4 and dinl <= 3, "K1 disagrees with its plain version")
-    k_ms = timed_ms(lambda: ba_cuda.pnp_solve(*pargs), 20)
+    k1a, k1b = ba_cuda._pnp_launch(*pargs), ba_cuda._pnp_launch(*pargs)
+    check(all(torch.equal(a, b) for a, b in zip(k1a, k1b)), "K1 is not deterministic")
+    k1_iters = int(k1a[6])
+    log(f"[K1 lm_pnp M={m}] two calls equal (incl. {k1_iters} LM iterations over 4 rounds)")
+    k_ms = device_ms(lambda: ba_cuda.pnp_solve(*pargs), "pnp_kernel", 20)
+    w_ms = timed_ms(lambda: ba_cuda.pnp_solve(*pargs), 20)
     p_ms = timed_ms(lambda: ba_cuda._pnp_plain(*pargs), 3)
-    log(f"[K1 lm_pnp M={m}] {k_ms:.3f} ms vs plain {p_ms:.3f} ms")
-    # bytes: points, observations and masks in, pose / mask / outlier out;
-    # operations: 4 chi2 rounds of at least one LM iteration over M landmarks
-    # (~300 flops each: transform, projection, Jacobian, normal equations)
-    out["lm_pnp"] = dict(max_abs_err=max(dt_, dr_), ms=k_ms, plain_ms=p_ms, library_ms=None,
-                         **bound(m * (12 + 8 + 8) + m * 8 + 64, 4 * m * 300))
+    log(f"[K1 lm_pnp M={m}] kernel {k_ms:.4f} ms, wrapper {w_ms:.4f} ms vs plain {p_ms:.3f} ms")
+    # bytes: points, observations and masks in, pose / outlier out;
+    # operations: one pass over the M landmarks (~300 flops each: transform,
+    # projection, Jacobian, normal equations) per LM iteration, plus the
+    # first linearization and the chi2 pass of each of the 4 rounds
+    out["lm_pnp"] = dict(max_abs_err=max(dt_, dr_), ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms,
+                         library_ms=None,
+                         **bound(m * (12 + 8 + 8) + m * 4 + 64, (k1_iters + 2 * 4) * m * 300))
 
     # ---- K2 (K = 10 and 2) and K3 (K = 10) at M = 2048 ----
-    def ba_problem(k, seed):
-        rng = np.random.default_rng(seed)
-        mm = 2048
-        pts = t(rng.uniform(-5, 5, (mm, 3)) + np.array([0, 0, 7.0]))
-        rs = lie.so3_exp(t(rng.uniform(-0.05, 0.05, (k, 3))))
-        ts = t(np.cumsum(rng.uniform(-0.05, 0.08, (k, 3)), 0))
-        rcb, tcb = lie.so3_exp(t([0.02, -0.01, 0.03])), t([0.01, 0.0, -0.02])
-        p_b = torch.einsum("kji,mj->kmi", rs, pts) - torch.einsum("kji,kj->ki", rs, ts)[:, None]
-        uv = cam.project(torch.einsum("ij,kmj->kmi", rcb, p_b) + tcb, 960, 480)
-        uv = uv + t(rng.standard_normal((k, mm, 2)) * 0.5)
-        mask = torch.as_tensor(rng.random((k, mm)) < 0.7, device=dev)
-        fixed_pose = torch.zeros(k, dtype=torch.bool, device=dev)
-        fixed_pose[0] = True
-        fixed_point = torch.as_tensor(rng.random(mm) < 0.1, device=dev)
-        ts_p = ts + t(rng.normal(0, 0.03, (k, 3)))
-        ts_p[0] = ts[0]
-        return (rs, ts_p, pts, uv, mask.float(), fixed_pose, fixed_point, 1e-4, rcb, tcb, 960, 480,
-                1.0, 1.0, False)
-
-    def ba_flops(k, mm, iters):
+    def ba_flops(args, iters):
         # per LM iteration: per observation Jacobian + weighted normal
-        # blocks (~300), per landmark Schur cross terms (K^2 * 6*6*3*2) and
-        # the 6K x 6K elimination
-        return iters * (k * mm * 300 + mm * k * k * 216 + (6 * k) ** 3 / 3)
+        # blocks (~300), per free landmark its Schur cross terms (nobs^2 *
+        # 6*6*3*2 for the keyframes that observe it) and the 6K x 6K
+        # elimination
+        mask, fixed_point = args[4], args[6]
+        k = mask.shape[0]
+        nobs = mask.sum(0)
+        pairs = float((nobs * nobs)[~fixed_point].sum())
+        return iters * (float(mask.sum()) * 300 + pairs * 216 + (6 * k) ** 3 / 3)
 
-    ba_err, ba_ms, ba_plain_ms, ba_bound = [], None, None, None
-    for k in (10, 2):
-        bargs = ba_problem(k, 5 + k)
+    def ba_bytes(k, mm):
+        return k * mm * 12 + mm * 13 + k * 12 * 2 + mm * 12
+
+    def ba_check(label, bargs):
         kk = ba_cuda.ba_solve(*bargs, max_iterations=50)
         pp = ba_cuda._ba_plain(*bargs, 50)
+        again = ba_cuda.ba_solve(*bargs, max_iterations=50)
         torch.cuda.synchronize()
         rel = abs(float(kk[3]) - float(pp[3])) / max(float(pp[3]), 1e-9)
         dpose = max(float((kk[0] - pp[0]).abs().max()), float((kk[1] - pp[1]).abs().max()))
-        log(f"[K2 lm_ba_solve K={k} M=2048] cost {float(kk[3]):.4f} vs {float(pp[3]):.4f} "
-            f"(rel {rel:.2e}), iters {int(kk[4])} vs {int(pp[4])}, max |dpose| {dpose:.3e}")
-        check(rel < 0.02 and dpose < 5e-3, f"K2 disagrees at K={k}")
+        same = all(torch.equal(a, b) for a, b in zip(kk, again))
+        log(f"[K2 lm_ba_solve {label}] cost {float(kk[3]):.4f} vs {float(pp[3]):.4f} "
+            f"(rel {rel:.2e}), iters {int(kk[4])} vs {int(pp[4])}, max |dpose| {dpose:.3e}; "
+            f"two calls equal: {same}")
+        check(rel < 0.02 and dpose < 5e-3, f"K2 disagrees ({label})")
+        check(same, f"K2 is not deterministic ({label})")
+        return kk, dpose
+
+    ba_err = []
+    for k in (10, 2):
+        bargs = ba_problem(dev, k, 5 + k)
+        kk, dpose = ba_check(f"K={k} M=2048", bargs)
         ba_err.append(dpose)
         if k == 10:
-            ba_ms = timed_ms(lambda: ba_cuda.ba_solve(*bargs, max_iterations=50), 10)
+            ba_ms = device_ms(lambda: ba_cuda.ba_solve(*bargs, max_iterations=50), "ba_kernel", 10)
+            ba_w_ms = timed_ms(lambda: ba_cuda.ba_solve(*bargs, max_iterations=50), 10)
             ba_plain_ms = timed_ms(lambda: ba_cuda._ba_plain(*bargs, 50), 2)
-            log(f"[K2 lm_ba_solve K=10 M=2048] {ba_ms:.3f} ms vs plain {ba_plain_ms:.3f} ms")
-            ba_bound = bound(k * 2048 * 12 + 2048 * 13 + k * 12 * 2 + 2048 * 12,
-                             ba_flops(k, 2048, max(int(kk[4]), 1)))
-    out["lm_ba_solve"] = dict(max_abs_err=max(ba_err), ms=ba_ms, plain_ms=ba_plain_ms,
-                              library_ms=None, **ba_bound)
+            log(f"[K2 lm_ba_solve K=10 M=2048] kernel {ba_ms:.4f} ms ({int(kk[4])} iterations), "
+                f"wrapper {ba_w_ms:.4f} ms vs plain {ba_plain_ms:.3f} ms")
+            ba_bound = bound(ba_bytes(k, 2048), ba_flops(bargs, max(int(kk[4]), 1)))
+    sargs = ba_problem(dev, 10, 31, window=3)
+    ks, dpose = ba_check("K=10 M=2048, 3 consecutive keyframes per landmark", sargs)
+    ba_err.append(dpose)
+    s_ms = device_ms(lambda: ba_cuda.ba_solve(*sargs, max_iterations=50), "ba_kernel", 10)
+    s_bound = bound(ba_bytes(10, 2048), ba_flops(sargs, max(int(ks[4]), 1)))
+    log(f"[K2 lm_ba_solve sliding window K=10 M=2048] {s_ms:.3f} ms ({int(ks[4])} iterations), "
+        f"bound {s_bound['bound_ms']:.5f} ms ({s_bound['bound_by']})")
+    out["lm_ba_solve"] = dict(max_abs_err=max(ba_err), ms=ba_ms, wrapper_ms=ba_w_ms,
+                              plain_ms=ba_plain_ms, library_ms=None, **ba_bound)
 
-    bargs = ba_problem(10, 15)
+    bargs = ba_problem(dev, 10, 15)
     kk = ba_cuda.ba_iteration(*bargs)
     pp = ba_cuda._ba_plain(*bargs, None)
     torch.cuda.synchronize()
@@ -281,13 +373,14 @@ def phase_kernels(dev):
         e = float((g - r).abs().max())
         worst = max(worst, e / scale)
         check(e <= 2e-3 * scale + 2e-3 * float(r.abs().max()), f"K3 disagrees on {name}: {e}")
-    k3_ms = timed_ms(lambda: ba_cuda.ba_iteration(*bargs), 20)
+    k3_ms = device_ms(lambda: ba_cuda.ba_iteration(*bargs), "ba_kernel", 20)
+    k3_w_ms = timed_ms(lambda: ba_cuda.ba_iteration(*bargs), 20)
     k3_plain = timed_ms(lambda: ba_cuda._ba_plain(*bargs, None), 3)
-    log(f"[K3 lm_ba_iteration K=10 M=2048] max scaled err {worst:.3e}; {k3_ms:.3f} ms vs plain "
-        f"{k3_plain:.3f} ms (off the main path: tests only)")
-    out["lm_ba_iteration"] = dict(max_abs_err=worst, ms=k3_ms, plain_ms=k3_plain, library_ms=None,
-                                  **bound(10 * 2048 * 12 + 2048 * 13 + 2048 * 12 + 240,
-                                          ba_flops(10, 2048, 1)))
+    log(f"[K3 lm_ba_iteration K=10 M=2048] max scaled err {worst:.3e}; kernel {k3_ms:.4f} ms, "
+        f"wrapper {k3_w_ms:.4f} ms vs plain {k3_plain:.3f} ms (off the main path: tests only)")
+    out["lm_ba_iteration"] = dict(max_abs_err=worst, ms=k3_ms, wrapper_ms=k3_w_ms, plain_ms=k3_plain,
+                                  library_ms=None,
+                                  **bound(ba_bytes(10, 2048), ba_flops(bargs, 1)))
     out["gather_win"] = phase_gather(dev, img0, img1, uv, valid)
     return out
 
@@ -318,15 +411,18 @@ def phase_gather(dev, img0, img1, uv, valid):
             torch.cuda.synchronize()
             check(torch.equal(got, ref), f"K5 disagrees at level {lvl}, g {g}")
             if lvl == 0 and g == 28:  # the largest call on the path: level-0 search patches
-                k_ms = timed_ms(lambda: gather_cuda.gather_window_pairs(img, v0, b, g), 50)
+                k_ms = device_ms(lambda: gather_cuda.gather_window_pairs(img, v0, b, g),
+                                 "gather_win_kernel", 50)
+                w_ms = timed_ms(lambda: gather_cuda.gather_window_pairs(img, v0, b, g), 50)
                 p_ms = timed_ms(lambda: gather_cuda.gather_window_pairs_plain(img, v0, b, g), 20)
                 imgb = img.to(torch.bfloat16)
                 rows, cols = gather_cuda.window_indices(h_k, wp, v0, b, g)
                 ri, ci = rows[:, :, None], cols[:, None, :]
                 lib_ms = timed_ms(lambda: imgb[ri, ci], 50)
-                rec = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                rec = dict(max_abs_err=0.0, ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms, library_ms=lib_ms,
                            **bound(h_k * wp * 4 + n * 8 + n * g * 256 * 2, n * g * 256))
-                log(f"[K5 gather_win level 0 N={n} g={g} WP={wp}] {k_ms:.4f} ms vs plain {p_ms:.4f} ms, "
+                log(f"[K5 gather_win level 0 N={n} g={g} WP={wp}] kernel {k_ms:.4f} ms, wrapper "
+                    f"{w_ms:.4f} ms vs plain {p_ms:.4f} ms, "
                     f"indexing call {lib_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
         log(f"[K5 gather_win level {lvl} {h_k}x{wp}] equal to its plain version at g = 24, 34, 28")
     return rec

@@ -18,7 +18,9 @@ and its counterpart in the port, with the JAX package's own tolerances:
 - the VO slice: ``tracking_step`` from one converted JAX state, and the
   whole CLI path end to end against the JAX ``Estimator``;
 - the kernels against their plain versions on a CUDA card (marked
-  ``cuda``; they skip without one).
+  ``cuda``; they skip without one), K2 at K in {1, 2, 6, 10, 16} and
+  M in {1, 130, 2048} and with every landmark fixed, and K1 and K2
+  returning equal tensors on two calls.
 
 Also: the port never imports JAX or the JAX package, its entry points
 run on the card unless asked for the CPU, and its CLI refuses what is
@@ -778,6 +780,68 @@ def test_ba_solve_kernel_matches_plain(dev, k):
     assert ba_cuda.LAUNCHES["lm_ba_solve"] == before + 1
     assert abs(float(got[3]) - float(ref[3])) < 0.02 * float(ref[3])
     assert float((got[0] - ref[0]).abs().max()) < 5e-3 and float((got[1] - ref[1]).abs().max()) < 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 130, 2048])
+@pytest.mark.parametrize("k", [1, 2, 6, 10, 16])
+def test_ba_solve_kernel_shapes(dev, k, m):
+    """K2 on one cluster at every window size up to 16 and any M: cost
+    within 2%, poses within 5e-3. At M = 1 the landmark is seen by every
+    keyframe and every pose is fixed (one landmark cannot hold K free
+    poses), so only it moves."""
+    args = list(_ba_args(dev, k, m=m, seed=100 + k))
+    if m == 1:
+        args[4] = torch.ones_like(args[4])
+        args[5] = torch.ones_like(args[5])
+    got = ba_cuda.ba_solve(*args, max_iterations=50)
+    ref = ba_cuda._ba_plain(*args, 50)
+    assert abs(float(got[3]) - float(ref[3])) <= 0.02 * float(ref[3]) + 1e-6  # a cost of 0 at M = 1
+    assert float((got[0] - ref[0]).abs().max()) < 5e-3 and float((got[1] - ref[1]).abs().max()) < 5e-3
+    assert bool(torch.isfinite(got[2]).all())
+
+
+@pytest.mark.cuda
+def test_ba_solve_kernel_every_point_fixed(dev):
+    """K2 with every landmark fixed: a pose-only problem; the landmarks
+    come back bit-equal."""
+    args = list(_ba_args(dev, 10, m=2048, seed=7))
+    args[6] = torch.ones_like(args[6])
+    got = ba_cuda.ba_solve(*args, max_iterations=50)
+    ref = ba_cuda._ba_plain(*args, 50)
+    assert abs(float(got[3]) - float(ref[3])) < 0.02 * float(ref[3])
+    assert float((got[0] - ref[0]).abs().max()) < 5e-3 and float((got[1] - ref[1]).abs().max()) < 5e-3
+    assert torch.equal(got[2], args[2])
+
+
+@pytest.mark.cuda
+def test_lm_kernels_are_deterministic(dev):
+    """K2 (cluster, rank-ordered reduction) and K1: two calls on the same
+    inputs return equal tensors and equal iteration counts."""
+    args = _ba_args(dev, 10, m=2048, seed=12)
+    a, b = ba_cuda.ba_solve(*args, max_iterations=50), ba_cuda.ba_solve(*args, max_iterations=50)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    rng = np.random.default_rng(3)
+    m = 1024
+    pts = _f(rng.uniform(-5, 5, (m, 3)) + np.array([0, 0, 7.0]), dev)
+    r_cb, t_cb = tlie.so3_exp(_f([0.01, 0.02, -0.01], dev)), _f([0.02, 0.01, 0.0], dev)
+    obs = tcam.project((pts - _f([0.15, -0.1, 0.2], dev)) @ r_cb.T + t_cb, W, H)
+    obs = obs + _f(rng.standard_normal((m, 2)) * 0.5, dev)
+    active = torch.ones(m, dtype=torch.bool, device=dev)
+    marg = torch.zeros(m, dtype=torch.bool, device=dev)
+    pargs = (torch.eye(3, device=dev), torch.zeros(3, device=dev), pts, obs, active, marg, 1e-4,
+             r_cb, t_cb, W, H, 1.0, 1.0, 5.991, 4, 50)
+    a, b = ba_cuda._pnp_launch(*pargs), ba_cuda._pnp_launch(*pargs)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_ba_launch_raises_when_the_kernel_refuses(dev, monkeypatch):
+    """A shape the launcher refuses (K above its 16) raises, not returns."""
+    monkeypatch.setattr(ba_cuda, "_MAX_K", 17)
+    args = _ba_args(dev, 17, m=128)
+    with pytest.raises(RuntimeError):
+        ba_cuda._ba_launch(*args, 50)
 
 
 @pytest.mark.cuda

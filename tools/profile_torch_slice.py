@@ -5,7 +5,9 @@ on the host clock (each frame ends in a device sync), once under
 ``torch.profiler`` over the frames [--from, --to). Prints the per-frame
 medians of tracking and keyframe frames, the stage means, and for the
 profiled window its wall time, the device's busy time (union of kernel
-and copy intervals), the launch count and the device time by kernel.
+and copy intervals), the launch count and the device time by kernel,
+the LM iteration count of each window-BA launch (K2) in the window, and
+the landmarks and LM iterations of each PnP launch (K1) there.
 The last line of standard output is a JSON summary.
 
     python tools/profile_torch_slice.py DATASET [--lk-backend matmul] [--vo] \\
@@ -29,6 +31,9 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
+_FRAME = [0]  # index of the frame being processed, for the K1 / K2 iteration records
+
+
 def _run(est, data, n, imu: bool, window=None, prof_ctx=None):
     import torch
 
@@ -36,6 +41,7 @@ def _run(est, data, n, imu: bool, window=None, prof_ctx=None):
     for f in data:
         if f.index >= n:
             break
+        _FRAME[0] = f.index
         if window is not None and f.index == window[0]:
             prof_ctx.__enter__()
             torch.cuda.synchronize()
@@ -107,8 +113,24 @@ def main(argv=None) -> int:
     data = VioDataset(args.dataset_dir, image_size=(cfg.camera.width, cfg.camera.height))
     n = min(len(data), args.stop)
 
+    # K2's and K1's LM iteration counts per launch in the unprofiled run
+    # (read after it)
+    k2_iters, k1_iters, solve, pnp_launch = [], [], ba_cuda.ba_solve, ba_cuda._pnp_launch
+
+    def recording_solve(*a, **kw):
+        out = solve(*a, **kw)
+        k2_iters.append((_FRAME[0], out[4]))
+        return out
+
+    def recording_pnp(*a, **kw):
+        out = pnp_launch(*a, **kw)
+        k1_iters.append((_FRAME[0], a[2].shape[0], out[6]))
+        return out
+
+    ba_cuda.ba_solve, ba_cuda._pnp_launch = recording_solve, recording_pnp
     est = Estimator(cfg, device=args.device)
     times, kinds, _ = _run(est, data, n, not args.vo)
+    ba_cuda.ba_solve, ba_cuda._pnp_launch = solve, pnp_launch
     stages = {k: v["mean_ms"] for k, v in est.timers.summary().items()}
     med = lambda sel: statistics.median(sel) * 1e3 if sel else None
     after = range(args.start, n)
@@ -134,12 +156,19 @@ def main(argv=None) -> int:
           f"({busy / (wall * 1e3):.3f}), {len(events)} device events")
     for name, (ms, cnt) in top:
         print(f"  {ms:9.2f} ms  x{cnt:6d}  {name[:90]}")
+    iters = [int(it) for fr, it in k2_iters if fr >= args.start]
+    print(f"K2 (window BA) launches in frames {args.start}-{n - 1}: {len(iters)}, LM iterations "
+          f"{iters}")
+    pnp = [(m, int(it)) for fr, m, it in k1_iters if fr >= args.start]
+    print(f"K1 (PnP) launches in frames {args.start}-{n - 1}: {len(pnp)}, landmarks "
+          f"{sorted({m for m, _ in pnp})}, LM iterations over the rounds {[it for _, it in pnp]}")
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "frames": [args.start, n - 1],
         "lk_backend": args.lk_backend, "vio": not args.vo, "tracking_frame_ms": track_ms,
         "keyframe_frame_ms": kf_ms, "stage_mean_ms": stages, "window_wall_ms": wall * 1e3,
         "device_busy_ms": busy, "device_events": len(events),
-        "top_kernels_ms": {k: v[0] for k, v in top},
+        "top_kernels_ms": {k: v[0] for k, v in top}, "k2_iterations": iters,
+        "k1_iterations": [it for _, it in pnp],
     }))
     return 0
 

@@ -4,220 +4,194 @@
 //   lm_pnp  <- pnp_solve    / _pnp_solve_kernel  (K1: 4 chi2 rounds x LM)
 //   lm_ba   <- ba_solve     / _ba_solve_kernel   (K2: whole LM loop)
 //           <- ba_iteration / _ba_iter_kernel    (K3: single = 1 iteration)
-// The K=1 PnP and the K<=16 window are the same LM iteration (the
-// reference's _lm_iteration), written once below.
+// Both follow the reference's _lm_iteration / _lm_loop: the same
+// residuals, Huber weights and 100-px cut, (c, k) order of the reduced
+// system, damping, gauge, retraction, lambda schedule and exits.
 //
-// What bounds it on this card: latency, not bytes or FLOPs. One problem
-// is K<=10 poses x M=2048 landmarks (~1 MB of inputs, ~10 MFLOP per
-// iteration), far too small to fill 132 SMs, and every LM iteration
-// depends on the previous one. A launch per iteration would pay a
-// launch plus a host sync each time.
+// What bounds them on this card: the dependency chain of the LM loop,
+// not bytes or FLOPs. A window problem is K <= 16 poses x M landmarks
+// (K=10, M=2048: ~1 MB of inputs, ~50 MFLOP per iteration), and every
+// iteration waits for the previous accept/reject, so the time is
+// latency: barriers, reductions and the serial 6K-pivot elimination,
+// iteration after iteration. The design keeps the loop on the card (no
+// host round trip per iteration), spreads the per-landmark work over
+// more SMs and counts barriers:
 //
-// What the design does about it: one thread block of 512 threads owns
-// the whole problem and runs the whole LM loop (and PnP's chi2 rounds)
-// inside the launch, with accept/reject decided from shared memory, so
-// there is no host round trip per iteration. Landmarks are processed
-// by segments of G = next_pow2(K) lanes, one lane per keyframe: per-pose
-// normal blocks (U, b_p) and the Schur right-hand-side correction stay
-// in registers and are reduced once per iteration; the 3x3 landmark
-// blocks are reduced with warp shuffles; the Schur cross terms
-// -W V^-1 W^T of each landmark go to a 6K x 6K system in shared memory
-// with shared atomics, skipping keyframes that do not observe it. The
-// reduced system is solved by the same unpivoted Gauss-Jordan in (c, k)
-// unknown order as the TPU kernel, then landmarks are back-substituted
-// and the trial state evaluated. atan2/asin use the TPU kernel's cephes
-// polynomials so the kernel and its plain version agree closely.
+// K2/K3 (ba_kernel): ONE thread-block cluster of C = 16 CTAs (cluster
+//   launch, kCluster). Every CTA holds identical copies of the
+//   loop state and owns a contiguous range of landmarks. Per iteration:
+//   (1) linearize its landmarks, only after an accepted step (W, V,
+//       b_l, U, b_p and the cost depend on the state, not on lambda);
+//   (2) with lambda: damped V^-1, Y = W V^-1 and its partial Schur
+//       product S = sum_m Y_m W_m^T as a dense (6K x 3L)(3L x 6K) tiled
+//       product, accumulated in registers -- no atomics;
+//   (3) cluster barrier; CTA 0 sums the C partials over distributed
+//       shared memory in rank order (so the result, and the iteration
+//       count, are the same bits on every run), assembles the damped
+//       6K x 6K system and solves it by the reference's unpivoted
+//       Gauss-Jordan, held in registers, with one block barrier per pivot;
+//   (4) cluster barrier; every CTA reads dx from CTA 0, retracts the
+//       poses, back-substitutes and evaluates the trial cost of its
+//       landmarks; (5) cluster barrier; every CTA sums the C trial
+//       partials in rank order and takes the same accept/reject.
+//   Three cluster barriers per iteration; a rejected step skips (1).
+// K1 (pnp_kernel): one CTA of 512 threads (a cluster barrier would cost
+//   more than its K = 1 work; at 1024 threads the 64-register cap spills
+//   the pass and the solve to local memory). Every landmark is fixed, so
+//   an iteration is one pass at the trial pose that yields the cost AND
+//   the 28 normal-equation sums (U, b, cost), reduced in one block
+//   reduction; thread 0 holds the loop state, decides accept/reject and
+//   solves the damped 6x6 system for the next trial pose. On accept the
+//   trial sums are the next linearization; on reject only lambda changes
+//   and the stored sums are solved again. Two block barriers per
+//   iteration: after the pass, and after thread 0's step.
+//
+// Scratch (K2/K3, global, from the wrapper): W [M][K][18], V upper and
+// b_l [M][9], damped V^-1 [M][9], trial landmarks [3][M].
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
-namespace {
+#include "lm_common.cuh"
 
-constexpr int kThreads = 512;
-constexpr int kMaxK = 16;
-constexpr float kTwoPi = 6.283185307179586f;
-constexpr float kPi = 3.141592653589793f;
-constexpr float kPi2 = 1.5707963267948966f;
-constexpr float kPi4 = 0.7853981633974483f;
-constexpr float kMaxPixelError = 100.0f;
-constexpr int kPart = 33;  // per-pose partials: U (21 upper), b_p (6), rhs correction (6)
-
-}  // namespace
-
-// Layout shared with vio360_tpu_torch/solver/ba_cuda.py::_LmParams.
-struct LmParams {
-  float width, height, cu, cv;
-  float huber_delta, inv_s2, lam0, step_tol;
-  float rel_tol, chi2_threshold;
-  float rcb[9];
-  float tcb[3];
-  int diag_damping;
-  int max_iterations;
-  int rounds;
-};
+namespace cg = cooperative_groups;
+using namespace lm;
 
 namespace {
 
-struct Ctx {
-  int K, M, G;
+constexpr int kBaThreads = 512;
+constexpr int kBaWarps = kBaThreads / 32;
+// CTAs of the K2/K3 cluster: 16 (non-portable) ran 3x faster than the
+// portable 8 on the H100 at K = 10, M = 2048 (PERF.md).
+constexpr int kCluster = 16;
+constexpr int kGjRows = 6;  // Gauss-Jordan rows per warp: 6K <= 96 over 16 warps
+constexpr int kGjCols = 4;  // Gauss-Jordan columns per lane: 6K + 1 <= 97 over 32 lanes
+constexpr int kPart = 33;  // per-pose partials: U (21 upper), b_p (6), Schur rhs correction (6)
+constexpr int kPnpThreads = 512;
+constexpr int kPnpWarps = kPnpThreads / 32;
+
+__host__ __device__ int seg_size(int K) {
+  int g = 1;
+  while (g < K) g <<= 1;
+  return g;
+}
+
+// ---------------------------------------------------------------------------
+// K2 / K3: window BA on one cluster
+// ---------------------------------------------------------------------------
+
+struct Ba {
+  int K, M, G, n, ld;
+  int m0, m1;  // this CTA's landmarks
   LmParams p;
   const float* obs_u;    // [K*M]
   const float* obs_v;    // [K*M]
   const float* wmask;    // [K*M]
-  const float* fixedpt;  // [M]; nullptr = every landmark fixed (PnP)
+  const float* fixedpt;  // [M]
   const float* fm;       // [K] 1 = free pose
-  float* wbuf;           // [M*K*18] W blocks for back-substitution
-  float* vib;            // [M*12] V^-1 (9) and b_l (3)
-  float* pts[2];         // [3*M] current / trial landmark buffers
+  float* wbuf;           // [M*K*18] W blocks
+  float* vbl;            // [M*9] V upper (6), b_l (3)
+  float* vinv;           // [M*9] damped V^-1
+  float* pts[2];         // [3*M] current / trial landmarks
   // shared memory
-  float* aug;            // n x (n+1)
-  float* prow;           // n+1
-  float* colv;           // n
-  float* dx;             // n
-  float* pose;           // K*12 current
-  float* pose_new;       // K*12 trial
-  float* part;           // nwarps*K*kPart
-  float* usum;           // K*kPart
-  float* red;            // 64
-  float* seg;            // nseg*2*K*18 (W, W V^-1) or nullptr
+  float* work;      // union: Y and W chunks [3L][n] x 2 | system [n][n+1] + pivot rows [2][n+1]
+  float* spart;     // [n*n] this CTA's sum of Y W^T
+  float* part;      // [K*kPart] this CTA's per-pose partials
+  float* usum;      // [K*kPart] per-pose sums over the cluster (CTA 0)
+  float* wslot;     // [kBaWarps*K*27] per-warp per-pose partials
+  float* pose;      // [K*12] current
+  float* pose_new;  // [K*12] trial
+  float* dx;        // [n]
+  float* red;       // [2*kBaWarps]
+  float* scal;      // [4] cost, trial cost, landmark step partials
 };
 
-__device__ __forceinline__ float atan01(float x) {
-  const bool red = x > 0.4142135623730951f;
-  const float xr = red ? (x - 1.0f) / (x + 1.0f) : x;
-  const float z = xr * xr;
-  const float y =
-      (((8.05374449538e-2f * z - 1.38776856032e-1f) * z + 1.99777106478e-1f) * z -
-       3.33329491539e-1f) * z * xr + xr;
-  return red ? kPi4 + y : y;
+__host__ __device__ size_t ba_work_floats(int K, int G) {
+  const int n = 6 * K, depth = 3 * (kBaThreads / G);
+  const size_t chunks = (size_t)2 * depth * n, gj = (size_t)(n + 2) * (n + 1);
+  return chunks > gj ? chunks : gj;
 }
 
-__device__ __forceinline__ float atan2p(float a, float b) {
-  const float aa = fabsf(a), ab = fabsf(b);
-  const float q = fminf(aa, ab) / fmaxf(fmaxf(aa, ab), 1e-30f);
-  float at = atan01(q);
-  at = aa > ab ? kPi2 - at : at;
-  at = b < 0.0f ? kPi - at : at;
-  return a < 0.0f ? -at : at;
+size_t ba_smem_floats(int K, int G) {
+  const int n = 6 * K;
+  return ba_work_floats(K, G) + (size_t)n * n + 2 * K * kPart + kBaWarps * K * 27 + 24 * K + n +
+         2 * kBaWarps + 4;
 }
 
-struct Obs {
-  float pb[3], pc[3], du, dv, c2;
-};
-
-// ERP reprojection of one landmark in one keyframe (pose rows r00..r22, t).
-__device__ __forceinline__ void evaluate(const float* pose, float px, float py, float pz,
-                                         float ou, float ov, const LmParams& p, Obs& o) {
-  const float dx = px - pose[9], dy = py - pose[10], dz = pz - pose[11];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) o.pb[i] = pose[i] * dx + pose[3 + i] * dy + pose[6 + i] * dz;
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    o.pc[i] = p.rcb[3 * i] * o.pb[0] + p.rcb[3 * i + 1] * o.pb[1] + p.rcb[3 * i + 2] * o.pb[2] + p.tcb[i];
-  const float x = o.pc[0], y = o.pc[1], z = o.pc[2];
-  const float theta = atan2p(x, z);
-  const float phi = -atan2p(y, sqrtf(fmaxf(x * x + z * z, 1e-24f)));
-  const float proj_u = p.width * (0.5f + theta / kTwoPi);
-  const float proj_v = p.height * (0.5f - phi / kPi);
-  float du = ou - proj_u;
-  du = du - p.width * rintf(du / p.width);
-  const float dv = ov - proj_v;
-  o.du = du;
-  o.dv = dv;
-  o.c2 = (du * du + dv * dv) * p.inv_s2;
+__device__ __forceinline__ void carve(Ba& b, float* s) {
+  const int K = b.K, n = b.n;
+  b.work = s;     s += ba_work_floats(K, b.G);  // first: 16-byte aligned, float2 reads
+  b.spart = s;    s += n * n;
+  b.part = s;     s += K * kPart;
+  b.usum = s;     s += K * kPart;
+  b.wslot = s;    s += kBaWarps * K * 27;
+  b.pose = s;     s += 12 * K;
+  b.pose_new = s; s += 12 * K;
+  b.dx = s;       s += n;
+  b.red = s;      s += 2 * kBaWarps;
+  b.scal = s;
 }
 
-__device__ __forceinline__ float huber_rho(float c2, float delta) {
-  const float d2 = delta * delta;
-  return c2 <= d2 ? c2 : 2.0f * delta * sqrtf(fmaxf(c2, 1e-20f)) - d2;
-}
-
-// Residual-sign Jacobians: pose [2][6] = [d/d rho | d/d phi], landmark [2][3].
-__device__ __forceinline__ void jacobians(const float* pose, const Obs& o, const LmParams& p,
-                                          float jp[2][6], float jl[2][3]) {
-  const float x = o.pc[0], y = o.pc[1], z = o.pc[2];
-  const float xz_sq = fmaxf(x * x + z * z, 1e-12f);
-  const float l_sq = fmaxf(x * x + y * y + z * z, 1e-12f);
-  const float xz = sqrtf(xz_sq);
-  float jpc[2][3];
-  jpc[0][0] = -(p.cu * z / xz_sq);
-  jpc[0][1] = 0.0f;
-  jpc[0][2] = -(-p.cu * x / xz_sq);
-  jpc[1][0] = -(-p.cv * x * y / (l_sq * xz));
-  jpc[1][1] = -(p.cv * xz / l_sq);
-  jpc[1][2] = -(-p.cv * y * z / (l_sq * xz));
-  const float* pb = o.pb;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float rh[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float jt = -(jpc[i][0] * p.rcb[j] + jpc[i][1] * p.rcb[3 + j] + jpc[i][2] * p.rcb[6 + j]);
-      jp[i][j] = jt;
-      rh[j] = -jt;
-    }
-    jp[i][3] = rh[1] * pb[2] + rh[2] * (-pb[1]);
-    jp[i][4] = rh[0] * (-pb[2]) + rh[2] * pb[0];
-    jp[i][5] = rh[0] * pb[1] + rh[1] * (-pb[0]);
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      jl[i][j] = rh[0] * pose[3 * j] + rh[1] * pose[3 * j + 1] + rh[2] * pose[3 * j + 2];
+// Sums of two values over the block (fixed order); every thread gets them.
+__device__ __forceinline__ void block_sum2(float a, float c, float* red, float out[2]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  a = warp_sum(a);
+  c = warp_sum(c);
+  __syncthreads();
+  if (lane == 0) {
+    red[warp] = a;
+    red[kBaWarps + warp] = c;
+  }
+  __syncthreads();
+  out[0] = 0.0f;
+  out[1] = 0.0f;
+  for (int w = 0; w < kBaWarps; ++w) {
+    out[0] += red[w];
+    out[1] += red[kBaWarps + w];
   }
 }
 
-__device__ __forceinline__ int usym(int c, int f) {  // upper-triangle index of a 6x6
-  if (c > f) { const int t = c; c = f; f = t; }
-  return c * 6 - (c * (c - 1)) / 2 + (f - c);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
+// Per-lane per-pose values (lane g of a segment = keyframe g) summed over
+// every segment of the CTA in a fixed order -- across the segments of a
+// warp by shuffles, then the warp slots in warp order -- into
+// part[k*kPart + off + i]. Visible after the caller's next barrier.
+template <int N>
+__device__ __forceinline__ void pose_reduce(const Ba& b, float (&v)[N], int off) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = tid % b.G, K = b.K;
+  for (int o = b.G; o < 32; o <<= 1) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+    for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+  }
+  __syncthreads();  // the slots' previous readers are done
+  if (lane < b.G && g < K) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) b.wslot[(warp * K + g) * N + i] = v[i];
+  }
+  __syncthreads();
+  for (int i = tid; i < K * N; i += kBaThreads) {
+    const int k = i / N, j = i % N;
+    float s = 0.0f;
+    for (int w = 0; w < kBaWarps; ++w) s += b.wslot[(w * K + k) * N + j];
+    b.part[k * kPart + off + j] = s;
+  }
 }
 
-// Deterministic block sum: every thread returns the same value.
-__device__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.0f;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += red[w];
-  return s;
-}
-
-// One LM iteration from (ctx.pose, ctx.pts[cur]) with damping lam:
-// writes the trial state to ctx.pose_new / ctx.pts[1-cur] and returns
-// (cur_cost, new_cost, step_sq) in out[0..2] (same value in every thread).
-__device__ void lm_iteration(const Ctx& c, int cur, float lam, float out[3]) {
-  const int K = c.K, M = c.M, G = c.G;
-  const int n = 6 * K, ld = n + 1;
-  const int tid = threadIdx.x, bs = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = tid % G, seg = tid / G, nseg = bs / G;
-  const int seg_in_warp = lane / G;
-  const unsigned seg_bits = G == 32 ? 0xffffffffu : ((1u << G) - 1u);
-  const unsigned segmask = seg_bits << (seg_in_warp * G);
+// (1) Linearize this CTA's landmarks at (pose, pts[cur]): W, V | b_l to
+// scratch, U | b_p to part[0..26], the Huber cost sum to scal[0].
+__device__ __forceinline__ void linearize(const Ba& b, int cur) {
+  const int tid = threadIdx.x, K = b.K, M = b.M, G = b.G;
+  const int g = tid % G, seg = tid / G, nseg = kBaThreads / G;
   const bool has_k = g < K;
-  const bool all_fixed = c.fixedpt == nullptr;
-  const float delta = c.p.huber_delta, d2 = delta * delta, inv_s2 = c.p.inv_s2;
-  const float* P = c.pts[cur];
-
-  for (int i = tid; i < n * ld; i += bs) c.aug[i] = 0.0f;
-  __syncthreads();
-
-  // ---- linearize: per-pose sums in registers, per-landmark Schur ----
-  float U[21], bp[6], rc[6];
+  const float* P = b.pts[cur];
+  float ub[27];
 #pragma unroll
-  for (int i = 0; i < 21; ++i) U[i] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 6; ++i) { bp[i] = 0.0f; rc[i] = 0.0f; }
-  float cost_acc = 0.0f;
-  const int iters = (M + nseg - 1) / nseg;
-  for (int it = 0; it < iters; ++it) {
-    const int m = it * nseg + seg;
-    const bool valid_m = m < M;
+  for (int i = 0; i < 27; ++i) ub[i] = 0.0f;
+  float cost = 0.0f;
+  for (int base = b.m0; base < b.m1; base += nseg) {
+    const int m = base + seg;
+    const bool valid = m < b.m1;
     float w = 0.0f, du = 0.0f, dv = 0.0f;
     float jp[2][6], jl[2][3];
 #pragma unroll
@@ -227,24 +201,22 @@ __device__ void lm_iteration(const Ctx& c, int cur, float lam, float out[3]) {
 #pragma unroll
       for (int j = 0; j < 3; ++j) jl[i][j] = 0.0f;
     }
-    if (valid_m && has_k) {
-      const float* pose = c.pose + 12 * g;
+    if (valid && has_k) {
+      const float* pose = b.pose + 12 * g;
       Obs o;
-      evaluate(pose, P[m], P[M + m], P[2 * M + m], c.obs_u[g * M + m], c.obs_v[g * M + m], c.p, o);
-      const float wm = c.wmask[g * M + m];
-      cost_acc += huber_rho(o.c2, delta) * wm;
-      const float wh = (o.c2 <= d2 ? 1.0f : delta / sqrtf(fmaxf(o.c2, 1e-20f))) * inv_s2;
-      const bool big = fabsf(o.du) > kMaxPixelError || fabsf(o.dv) > kMaxPixelError;
-      w = big ? 0.0f : wh * wm;
+      evaluate(pose, P[m], P[M + m], P[2 * M + m], b.obs_u[g * M + m], b.obs_v[g * M + m], b.p, o);
+      const float wm = b.wmask[g * M + m];
+      cost += huber_rho(o.c2, b.p.huber_delta) * wm;
+      w = irls_weight(o, wm, b.p);
       du = o.du;
       dv = o.dv;
-      jacobians(pose, o, c.p, jp, jl);
+      jacobians(pose, o, b.p, jp, jl);
       int u = 0;
 #pragma unroll
       for (int a = 0; a < 6; ++a) {
 #pragma unroll
-        for (int b = a; b < 6; ++b) U[u++] += w * (jp[0][a] * jp[0][b] + jp[1][a] * jp[1][b]);
-        bp[a] += -(w * (jp[0][a] * du + jp[1][a] * dv));
+        for (int c = a; c < 6; ++c) ub[u++] += w * (jp[0][a] * jp[0][c] + jp[1][a] * jp[1][c]);
+        ub[21 + a] += -(w * (jp[0][a] * du + jp[1][a] * dv));
       }
     }
     // landmark block V (upper 6) and b_l (3), summed over the segment
@@ -261,408 +233,681 @@ __device__ void lm_iteration(const Ctx& c, int cur, float lam, float out[3]) {
 #pragma unroll
       for (int i = 0; i < 9; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
     }
-    const bool fixed = all_fixed || !valid_m || c.fixedpt[m] > 0.5f;
+    const bool fixed = !valid || b.fixedpt[m] > 0.5f;
     if (!fixed) {
-      const float dmp = (lam / 3.0f) * (v[0] + v[3] + v[5]) + 1e-8f;
-      const float vd[3][3] = {{v[0] + dmp, v[1], v[2]}, {v[1], v[3] + dmp, v[4]}, {v[2], v[4], v[5] + dmp}};
-      float co[3][3];
-      co[0][0] = vd[1][1] * vd[2][2] - vd[1][2] * vd[2][1];
-      co[0][1] = vd[0][2] * vd[2][1] - vd[0][1] * vd[2][2];
-      co[0][2] = vd[0][1] * vd[1][2] - vd[0][2] * vd[1][1];
-      co[1][0] = vd[1][2] * vd[2][0] - vd[1][0] * vd[2][2];
-      co[1][1] = vd[0][0] * vd[2][2] - vd[0][2] * vd[2][0];
-      co[1][2] = vd[0][2] * vd[1][0] - vd[0][0] * vd[1][2];
-      co[2][0] = vd[1][0] * vd[2][1] - vd[1][1] * vd[2][0];
-      co[2][1] = vd[0][1] * vd[2][0] - vd[0][0] * vd[2][1];
-      co[2][2] = vd[0][0] * vd[1][1] - vd[0][1] * vd[1][0];
-      const float det = vd[0][0] * co[0][0] + vd[0][1] * co[1][0] + vd[0][2] * co[2][0];
-      const float inv_det = 1.0f / (fabsf(det) > 1e-30f ? det : 1.0f);
-      float vinv[9];
-#pragma unroll
-      for (int i = 0; i < 9; ++i) vinv[i] = co[i / 3][i % 3] * inv_det;
-      float* sW = c.seg + (size_t)seg * 2 * K * 18;
-      float* sWV = sW + K * 18;
       if (has_k) {
-        float W[18], WV[18];
+        float* gw = b.wbuf + ((size_t)m * K + g) * 18;
 #pragma unroll
         for (int a = 0; a < 6; ++a) {
 #pragma unroll
-          for (int d = 0; d < 3; ++d) W[a * 3 + d] = w * (jp[0][a] * jl[0][d] + jp[1][a] * jl[1][d]);
-#pragma unroll
-          for (int e = 0; e < 3; ++e)
-            WV[a * 3 + e] = W[a * 3] * vinv[e] + W[a * 3 + 1] * vinv[3 + e] + W[a * 3 + 2] * vinv[6 + e];
-          rc[a] += WV[a * 3] * v[6] + WV[a * 3 + 1] * v[7] + WV[a * 3 + 2] * v[8];
-        }
-        float* gw = c.wbuf + ((size_t)m * K + g) * 18;
-#pragma unroll
-        for (int i = 0; i < 18; ++i) {
-          sW[g * 18 + i] = W[i];
-          sWV[g * 18 + i] = WV[i];
-          gw[i] = W[i];
+          for (int d = 0; d < 3; ++d) gw[a * 3 + d] = w * (jp[0][a] * jl[0][d] + jp[1][a] * jl[1][d]);
         }
       }
       if (g == 0) {
-        float* vb = c.vib + (size_t)m * 12;
 #pragma unroll
-        for (int i = 0; i < 9; ++i) vb[i] = vinv[i];
-        vb[9] = v[6];
-        vb[10] = v[7];
-        vb[11] = v[8];
-      }
-      // keyframes observing this landmark (W is exactly zero elsewhere)
-      const unsigned bal = __ballot_sync(segmask, has_k && w != 0.0f);
-      const unsigned obs = (bal >> (seg_in_warp * G)) & seg_bits;
-      __syncwarp(segmask);
-      int ks[kMaxK];
-      int nobs = 0;
-      for (int k = 0; k < K; ++k)
-        if ((obs >> k) & 1u) ks[nobs++] = k;
-      const int per = nobs * 36;
-      for (int e = g; e < nobs * per; e += G) {
-        const int ka = ks[e / per], rem = e % per;
-        const int kb = ks[rem / 36], cc = (rem % 36) / 6, ff = rem % 6;
-        const float* wva = sWV + ka * 18 + cc * 3;
-        const float* wb = sW + kb * 18 + ff * 3;
-        const float s = wva[0] * wb[0] + wva[1] * wb[1] + wva[2] * wb[2];
-        atomicAdd(&c.aug[(cc * K + ka) * ld + ff * K + kb], -s);
-      }
-      __syncwarp(segmask);
-    }
-  }
-  // per-pose partials: reduce across the segments of a warp, one slot per warp
-  for (int off = G; off < 32; off <<= 1) {
-#pragma unroll
-    for (int i = 0; i < 21; ++i) U[i] += __shfl_xor_sync(0xffffffffu, U[i], off);
-#pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      bp[i] += __shfl_xor_sync(0xffffffffu, bp[i], off);
-      rc[i] += __shfl_xor_sync(0xffffffffu, rc[i], off);
-    }
-  }
-  if (seg_in_warp == 0 && has_k) {
-    float* dst = c.part + (warp * K + g) * kPart;
-#pragma unroll
-    for (int i = 0; i < 21; ++i) dst[i] = U[i];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      dst[21 + i] = bp[i];
-      dst[27 + i] = rc[i];
-    }
-  }
-  const float cur_cost = 0.5f * block_sum(cost_acc, c.red);  // syncs: partials visible
-  const int nwarps = bs >> 5;
-  for (int i = tid; i < K * kPart; i += bs) {
-    float s = 0.0f;
-    for (int wi = 0; wi < nwarps; ++wi) s += c.part[wi * K * kPart + i];
-    c.usum[i] = s;
-  }
-  __syncthreads();
-
-  // ---- reduced camera system in (c, k) order, damping and gauge ----
-  for (int i = tid; i < n * n; i += bs) {
-    const int row = i / n, col = i % n;
-    const int cc = row / K, k = row % K, ff = col / K, l = col % K;
-    float val = c.aug[row * ld + col];
-    if (k == l) {
-      const float* us = c.usum + k * kPart;
-      float ud;
-      if (c.p.diag_damping) {
-        ud = us[usym(cc, ff)] * (cc == ff ? 1.0f + lam : 1.0f) + (cc == ff ? 1e-10f : 0.0f);
-      } else {
-        const float tr = us[usym(0, 0)] + us[usym(1, 1)] + us[usym(2, 2)] + us[usym(3, 3)] +
-                         us[usym(4, 4)] + us[usym(5, 5)];
-        ud = us[usym(cc, ff)] + (cc == ff ? (lam / 6.0f) * tr : 0.0f);
-      }
-      val += ud;
-    }
-    val = val * c.fm[k] * c.fm[l] + (row == col ? 1.0f - c.fm[k] : 0.0f);
-    c.aug[row * ld + col] = val;
-  }
-  for (int row = tid; row < n; row += bs) {
-    const int cc = row / K, k = row % K;
-    const float* us = c.usum + k * kPart;
-    c.aug[row * ld + n] = (us[21 + cc] - us[27 + cc]) * c.fm[k];
-  }
-  __syncthreads();
-
-  // ---- unpivoted Gauss-Jordan on [n, n+1] ----
-  for (int i = 0; i < n; ++i) {
-    const float piv = c.aug[i * ld + i];
-    for (int j = tid; j < ld; j += bs) c.prow[j] = c.aug[i * ld + j] / piv;
-    for (int r = tid; r < n; r += bs) c.colv[r] = c.aug[r * ld + i];
-    __syncthreads();
-    for (int idx = tid; idx < n * ld; idx += bs) {
-      const int r = idx / ld, j = idx % ld;
-      c.aug[idx] = r == i ? c.prow[j] : c.aug[idx] - c.colv[r] * c.prow[j];
-    }
-    __syncthreads();
-  }
-  for (int r = tid; r < n; r += bs) c.dx[r] = c.aug[r * ld + n];
-  __syncthreads();
-
-  // ---- landmark back-substitution -> trial points ----
-  float step_l = 0.0f;
-  float* Pn = c.pts[1 - cur];
-  if (!all_fixed) {
-    for (int m = tid; m < M; m += bs) {
-      float dl[3] = {0.0f, 0.0f, 0.0f};
-      if (!(c.fixedpt[m] > 0.5f)) {
-        const float* vb = c.vib + (size_t)m * 12;
-        float tmp[3];
-#pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          float s = 0.0f;
-          for (int k = 0; k < K; ++k) {
-            const float* wk = c.wbuf + ((size_t)m * K + k) * 18;
-            float sk = 0.0f;
-#pragma unroll
-            for (int a = 0; a < 6; ++a) sk += wk[a * 3 + d] * c.dx[a * K + k];
-            s += sk;
-          }
-          tmp[d] = vb[9 + d] - s;
-        }
-#pragma unroll
-        for (int d = 0; d < 3; ++d) dl[d] = vb[3 * d] * tmp[0] + vb[3 * d + 1] * tmp[1] + vb[3 * d + 2] * tmp[2];
-      }
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        Pn[d * M + m] = P[d * M + m] + dl[d];
-        step_l += dl[d] * dl[d];
+        for (int i = 0; i < 9; ++i) b.vbl[(size_t)m * 9 + i] = v[i];
       }
     }
   }
-
-  // ---- retract poses: T_new = T exp([rho, phi]) ----
-  if (tid < K) {
-    const int k = tid;
-    const float rho[3] = {c.dx[0 * K + k], c.dx[1 * K + k], c.dx[2 * K + k]};
-    const float wv[3] = {c.dx[3 * K + k], c.dx[4 * K + k], c.dx[5 * K + k]};
-    const float th2 = wv[0] * wv[0] + wv[1] * wv[1] + wv[2] * wv[2];
-    const float th = sqrtf(fmaxf(th2, 1e-30f));
-    const bool small = th2 < 1e-10f;
-    const float sa = small ? 1.0f - th2 / 6.0f : sinf(th) / th;
-    const float sb = small ? 0.5f - th2 / 24.0f : (1.0f - cosf(th)) / fmaxf(th2, 1e-30f);
-    const float sc = small ? 1.0f / 6.0f - th2 / 120.0f : (th - sinf(th)) / fmaxf(th2 * th, 1e-30f);
-    const float hw[3][3] = {{0.0f, -wv[2], wv[1]}, {wv[2], 0.0f, -wv[0]}, {-wv[1], wv[0], 0.0f}};
-    float dr[3][3], vm[3][3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const float base = i == j ? 1.0f : 0.0f;
-        const float k2 = wv[i] * wv[j] - (i == j ? th2 : 0.0f);
-        dr[i][j] = base + sa * hw[i][j] + sb * k2;
-        vm[i][j] = base + sb * hw[i][j] + sc * k2;
-      }
-    }
-    float dt[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) dt[i] = vm[i][0] * rho[0] + vm[i][1] * rho[1] + vm[i][2] * rho[2];
-    const float* r = c.pose + 12 * k;
-    float* rn = c.pose_new + 12 * k;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        rn[3 * i + j] = r[3 * i] * dr[0][j] + r[3 * i + 1] * dr[1][j] + r[3 * i + 2] * dr[2][j];
-      rn[9 + i] = r[3 * i] * dt[0] + r[3 * i + 1] * dt[1] + r[3 * i + 2] * dt[2] + r[9 + i];
-    }
-  }
-  float step_x = 0.0f;
-  for (int r = tid; r < n; r += bs) step_x += c.dx[r] * c.dx[r];
-  __syncthreads();
-
-  // ---- trial evaluation ----
-  const float* Pt = all_fixed ? P : Pn;
-  float new_acc = 0.0f;
-  for (int m = tid; m < M; m += bs) {
-    const float px = Pt[m], py = Pt[M + m], pz = Pt[2 * M + m];
-    for (int k = 0; k < K; ++k) {
-      Obs o;
-      evaluate(c.pose_new + 12 * k, px, py, pz, c.obs_u[k * M + m], c.obs_v[k * M + m], c.p, o);
-      new_acc += huber_rho(o.c2, delta) * c.wmask[k * M + m];
-    }
-  }
-  const float new_cost = 0.5f * block_sum(new_acc, c.red);
-  const float sx = block_sum(step_x, c.red);
-  const float sl = block_sum(step_l, c.red);
-  out[0] = cur_cost;
-  out[1] = new_cost;
-  out[2] = sx + sl;
+  pose_reduce<27>(b, ub, 0);
+  float s[2];
+  block_sum2(cost, 0.0f, b.red, s);
+  if (tid == 0) b.scal[0] = s[0];
 }
 
-// In-kernel LM accept/reject loop (control flow of ba_pallas._lm_loop).
-// Every thread holds identical copies of the loop state.
-__device__ void lm_loop(const Ctx& c, int& cur, float lam, int max_iterations, float step_tol,
-                        float rel_tol, float* cost_out, int* iters_out) {
-  int it = 0;
-  bool done = false;
-  float cost = 0.0f;
-  while (it < max_iterations && !done) {
-    float o[3];
-    lm_iteration(c, cur, lam, o);
-    const bool accept = o[1] < o[0];
+// (2) With damping lam: V^-1 to scratch, this CTA's S = sum_m Y_m W_m^T
+// to spart and its rhs correction sum_m Y_m b_l to part[27..32].
+// Landmarks go by chunks of L = one per segment: each lane writes its
+// keyframe's Y and W rows into [3L][n] tiles (depth-major), then the
+// CTA multiplies them, each thread owning a 2 x 6 tile of S.
+__device__ __forceinline__ void schur(const Ba& b, float lam) {
+  const int tid = threadIdx.x, K = b.K, G = b.G, n = b.n;
+  const int g = tid % G, seg = tid / G, L = kBaThreads / G, depth = 3 * L;
+  const bool has_k = g < K;
+  float* Y = b.work;
+  float* Wc = b.work + depth * n;
+  float rc[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) rc[i] = 0.0f;
+  // each thread owns up to two 2 x 6 tiles of S (3K^2 <= 768 tiles) and
+  // keeps them in registers over all chunks
+  const int half = n / 2, ntiles = half * K;
+  float acc[2][2][6];
+#pragma unroll
+  for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) acc[tt][0][c] = acc[tt][1][c] = 0.0f;
+  for (int base = b.m0; base < b.m1; base += L) {
+    const int m = base + seg;
+    const bool fixed = m >= b.m1 || b.fixedpt[m] > 0.5f;
+    float vinv[9], bl[3];
+    if (!fixed) {
+      const float* vb = b.vbl + (size_t)m * 9;
+      damped_inverse3(vb, lam, vinv);
+      bl[0] = vb[6];
+      bl[1] = vb[7];
+      bl[2] = vb[8];
+      if (g == 0) {
+#pragma unroll
+        for (int i = 0; i < 9; ++i) b.vinv[(size_t)m * 9 + i] = vinv[i];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 9; ++i) vinv[i] = 0.0f;
+      bl[0] = bl[1] = bl[2] = 0.0f;
+    }
+    if (has_k) {
+      float W[18];
+      const float* gw = b.wbuf + ((size_t)m * K + g) * 18;
+#pragma unroll
+      for (int i = 0; i < 18; ++i) W[i] = fixed ? 0.0f : gw[i];
+#pragma unroll
+      for (int a = 0; a < 6; ++a) {
+        float yv[3];
+#pragma unroll
+        for (int e = 0; e < 3; ++e) yv[e] = W[a * 3] * vinv[e] + W[a * 3 + 1] * vinv[3 + e] + W[a * 3 + 2] * vinv[6 + e];
+        rc[a] += yv[0] * bl[0] + yv[1] * bl[1] + yv[2] * bl[2];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          Y[(3 * seg + d) * n + a * K + g] = yv[d];
+          Wc[(3 * seg + d) * n + a * K + g] = W[a * 3 + d];
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int tt = 0; tt < 2; ++tt) {
+      const int t = tid + tt * kBaThreads;
+      if (t < ntiles) {
+        const int r0 = 2 * (t % half), c0 = 6 * (t / half);
+#pragma unroll 4
+        for (int j = 0; j < depth; ++j) {
+          const float2 a = *reinterpret_cast<const float2*>(Y + j * n + r0);
+          const float2* wp = reinterpret_cast<const float2*>(Wc + j * n + c0);
+          const float2 w0 = wp[0], w1 = wp[1], w2 = wp[2];
+          const float wv[6] = {w0.x, w0.y, w1.x, w1.y, w2.x, w2.y};
+#pragma unroll
+          for (int c = 0; c < 6; ++c) {
+            acc[tt][0][c] += a.x * wv[c];
+            acc[tt][1][c] += a.y * wv[c];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int tt = 0; tt < 2; ++tt) {
+    const int t = tid + tt * kBaThreads;
+    if (t < ntiles) {
+      const int r0 = 2 * (t % half), c0 = 6 * (t / half);
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+        b.spart[r0 * n + c0 + c] = acc[tt][0][c];
+        b.spart[(r0 + 1) * n + c0 + c] = acc[tt][1][c];
+      }
+    }
+  }
+  pose_reduce<6>(b, rc, 27);
+}
+
+// (3a) CTA 0: sum the cluster's partials in rank order and assemble the
+// damped reduced system [S | rhs] in (c, k) order with the gauge.
+__device__ __forceinline__ void assemble(const Ba& b, float lam, const cg::cluster_group& cluster) {
+  const int tid = threadIdx.x, K = b.K, n = b.n, ld = b.ld;
+  // Every rank's value is loaded before the first add, so the remote
+  // loads are in flight together; the adds go in rank order.
+  auto cluster_sum = [&](float* local, int i) {
+    float v[kCluster];
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) v[r] = cluster.map_shared_rank(local, r)[i];
+    float s = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) s += v[r];
+    return s;
+  };
+  for (int i = tid; i < K * kPart; i += kBaThreads) b.usum[i] = cluster_sum(b.part, i);
+  __syncthreads();
+  float* A0 = b.work;
+  for (int i = tid; i < n * n; i += kBaThreads) {
+    const int row = i / n, col = i % n;
+    const int cc = row / K, k = row % K, ff = col / K, l = col % K;
+    float val = -cluster_sum(b.spart, i);
+    if (k == l) val += damped_u(b.usum + k * kPart, cc, ff, lam, b.p.diag_damping);
+    A0[row * ld + col] = val * b.fm[k] * b.fm[l] + (row == col ? 1.0f - b.fm[k] : 0.0f);
+  }
+  for (int row = tid; row < n; row += kBaThreads) {
+    const int cc = row / K, k = row % K;
+    const float* us = b.usum + k * kPart;
+    A0[row * ld + n] = (us[21 + cc] - us[27 + cc]) * b.fm[k];
+  }
+  __syncthreads();
+}
+
+// v[i] of a register array at an index that is the same in every lane
+// (selects, so the array stays in registers).
+template <int N>
+__device__ __forceinline__ float pick(const float (&v)[N], int i) {
+  float x = v[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) x = i == k ? v[k] : x;
+  return x;
+}
+
+// (3b) CTA 0: unpivoted Gauss-Jordan on the assembled system -> dx.
+// The system lives in registers: warp w holds rows w, w + 16, ..., lane l
+// columns l, l + 32, .... Per pivot i the warp holding row i divides it
+// by the pivot and publishes it to shared memory (double-buffered by the
+// pivot's parity), one barrier, then every warp updates its rows with the
+// pivot column it takes from the lane that holds it and the holder of
+// row i replaces it by the published row (the reference's formula per
+// entry): one barrier per pivot, and the only shared-memory traffic is
+// one row.
+__device__ __forceinline__ void gauss_jordan(const Ba& b) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n = b.n, ld = b.ld;
+  const float* A = b.work;
+  float* prow = b.work + n * ld;  // [2][ld]
+  float a[kGjRows][kGjCols];
+#pragma unroll
+  for (int q = 0; q < kGjRows; ++q) {
+    const int r = warp + kBaWarps * q;
+#pragma unroll
+    for (int c = 0; c < kGjCols; ++c) {
+      const int j = lane + 32 * c;
+      a[q][c] = r < n && j < ld ? A[r * ld + j] : 0.0f;
+    }
+  }
+  for (int i = 0; i < n; ++i) {
+    const int qi = i / kBaWarps, ci = i / 32, li = i % 32;
+    const bool owner = warp == i % kBaWarps;
+    float* pr_row = prow + (i & 1) * ld;
+    if (owner) {
+      float row[kGjCols];
+#pragma unroll
+      for (int c = 0; c < kGjCols; ++c) {
+        float x = a[0][c];
+#pragma unroll
+        for (int q = 1; q < kGjRows; ++q) x = qi == q ? a[q][c] : x;
+        row[c] = x;
+      }
+      const float piv = __shfl_sync(0xffffffffu, pick(row, ci), li);
+#pragma unroll
+      for (int c = 0; c < kGjCols; ++c) {
+        const int j = lane + 32 * c;
+        if (j >= i && j < ld) pr_row[j] = row[c] / piv;
+      }
+    }
+    // the pivot column, taken before this step changes it
+    float col[kGjRows];
+#pragma unroll
+    for (int q = 0; q < kGjRows; ++q) col[q] = __shfl_sync(0xffffffffu, pick(a[q], ci), li);
+    __syncthreads();
+    // Every held entry is updated: columns < i and padding rows / columns
+    // are never read again, so updating them costs FMAs but no compares.
+    float pr[kGjCols];
+#pragma unroll
+    for (int c = 0; c < kGjCols; ++c) {
+      const int j = lane + 32 * c;
+      pr[c] = j >= i && j < ld ? pr_row[j] : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < kGjRows; ++q) {
+#pragma unroll
+      for (int c = 0; c < kGjCols; ++c) a[q][c] -= col[q] * pr[c];
+    }
+    if (owner) {
+#pragma unroll
+      for (int q = 0; q < kGjRows; ++q) {
+        if (q == qi) {
+#pragma unroll
+          for (int c = 0; c < kGjCols; ++c) a[q][c] = pr[c];
+        }
+      }
+    }
+  }
+  const int cn = n / 32, ln = n % 32;
+#pragma unroll
+  for (int q = 0; q < kGjRows; ++q) {
+    const int r = warp + kBaWarps * q;
+    if (r < n && lane == ln) b.dx[r] = pick(a[q], cn);
+  }
+}
+
+// (4) Trial state of this CTA's landmarks: back-substitute dl, write
+// pts[1-cur], sum the trial Huber cost and |dl|^2 into scal[1], scal[2].
+__device__ __forceinline__ void trial(const Ba& b, int cur) {
+  const int tid = threadIdx.x, K = b.K, M = b.M, G = b.G;
+  const int g = tid % G, seg = tid / G, nseg = kBaThreads / G;
+  const bool has_k = g < K;
+  const float* P = b.pts[cur];
+  float* Pn = b.pts[1 - cur];
+  float new_acc = 0.0f, step_l = 0.0f;
+  for (int base = b.m0; base < b.m1; base += nseg) {
+    const int m = base + seg;
+    const bool valid = m < b.m1;
+    const bool fixed = !valid || b.fixedpt[m] > 0.5f;
+    float s[3] = {0.0f, 0.0f, 0.0f};
+    if (!fixed && has_k) {
+      const float* wk = b.wbuf + ((size_t)m * K + g) * 18;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        float sk = 0.0f;
+#pragma unroll
+        for (int a = 0; a < 6; ++a) sk += wk[a * 3 + d] * b.dx[a * K + g];
+        s[d] = sk;
+      }
+    }
+    for (int off = G >> 1; off > 0; off >>= 1) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) s[d] += __shfl_xor_sync(0xffffffffu, s[d], off);
+    }
+    if (valid) {
+      float dl[3] = {0.0f, 0.0f, 0.0f};
+      if (!fixed) {
+        const float* vi = b.vinv + (size_t)m * 9;
+        const float* vb = b.vbl + (size_t)m * 9;
+        const float tmp[3] = {vb[6] - s[0], vb[7] - s[1], vb[8] - s[2]};
+#pragma unroll
+        for (int d = 0; d < 3; ++d) dl[d] = vi[3 * d] * tmp[0] + vi[3 * d + 1] * tmp[1] + vi[3 * d + 2] * tmp[2];
+      }
+      const float px = P[m] + dl[0], py = P[M + m] + dl[1], pz = P[2 * M + m] + dl[2];
+      if (g == 0) {
+        Pn[m] = px;
+        Pn[M + m] = py;
+        Pn[2 * M + m] = pz;
+        step_l += dl[0] * dl[0] + dl[1] * dl[1] + dl[2] * dl[2];
+      }
+      if (has_k) {
+        Obs o;
+        evaluate(b.pose_new + 12 * g, px, py, pz, b.obs_u[g * M + m], b.obs_v[g * M + m], b.p, o);
+        new_acc += huber_rho(o.c2, b.p.huber_delta) * b.wmask[g * M + m];
+      }
+    }
+  }
+  float out[2];
+  block_sum2(new_acc, step_l, b.red, out);
+  if (tid == 0) {
+    b.scal[1] = out[0];
+    b.scal[2] = out[1];
+  }
+}
+
+// Sum of scal[i] over the cluster in rank order (same bits in every CTA).
+__device__ __forceinline__ float cluster_scalar(const Ba& b, int i, const cg::cluster_group& cluster) {
+  float s = 0.0f;
+  for (int r = 0; r < kCluster; ++r) s += cluster.map_shared_rank(b.scal, r)[i];
+  return s;
+}
+
+__global__ void __launch_bounds__(kBaThreads, 1)
+ba_kernel(const float* pose_in, const float* pts_in, const float* obs_u, const float* obs_v,
+          const float* wmask, const float* fixedpt, const float* fm, float* pose_out,
+          float* pts_out, float* out_scal, float* scratch, int K, int M, LmParams p, int single) {
+  extern __shared__ __align__(16) float smem[];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const int rank = (int)cluster.block_rank();
+  Ba b;
+  b.K = K; b.M = M; b.G = seg_size(K); b.n = 6 * K; b.ld = 6 * K + 1; b.p = p;
+  const int per = (M + kCluster - 1) / kCluster;
+  b.m0 = min(M, rank * per);
+  b.m1 = min(M, b.m0 + per);
+  b.obs_u = obs_u; b.obs_v = obs_v; b.wmask = wmask; b.fixedpt = fixedpt; b.fm = fm;
+  b.wbuf = scratch;
+  b.vbl = b.wbuf + (size_t)M * K * 18;
+  b.vinv = b.vbl + (size_t)M * 9;
+  b.pts[0] = pts_out;
+  b.pts[1] = b.vinv + (size_t)M * 9;
+  carve(b, smem);
+  for (int d = 0; d < 3; ++d)
+    for (int m = b.m0 + tid; m < b.m1; m += kBaThreads) pts_out[d * M + m] = pts_in[d * M + m];
+  for (int i = tid; i < 12 * K; i += kBaThreads) b.pose[i] = pose_in[i];
+  __syncthreads();
+
+  int cur = 0, it = 0;
+  const int max_it = single ? 1 : p.max_iterations;
+  float lam = p.lam0, cur_cost = 0.0f, cost = 0.0f;
+  bool relin = true, done = false;
+  while (it < max_it && !done) {
+    if (relin) linearize(b, cur);
+    schur(b, lam);
+    cluster.sync();  // partials visible to CTA 0
+    if (relin) cur_cost = 0.5f * cluster_scalar(b, 0, cluster);
+    if (rank == 0) {
+      assemble(b, lam, cluster);
+      gauss_jordan(b);
+    }
+    cluster.sync();  // dx visible
+    if (rank != 0) {
+      const float* dx0 = cluster.map_shared_rank(b.dx, 0);
+      for (int r = tid; r < b.n; r += kBaThreads) b.dx[r] = dx0[r];
+    }
+    __syncthreads();
+    if (tid < K) {
+      const float rho[3] = {b.dx[tid], b.dx[K + tid], b.dx[2 * K + tid]};
+      const float wv[3] = {b.dx[3 * K + tid], b.dx[4 * K + tid], b.dx[5 * K + tid]};
+      retract(b.pose + 12 * tid, rho, wv, b.pose_new + 12 * tid);
+    }
+    __syncthreads();
+    trial(b, cur);
+    cluster.sync();  // trial partials visible
+    const float new_cost = 0.5f * cluster_scalar(b, 1, cluster);
+    float step_x = 0.0f;
+    for (int r = 0; r < b.n; ++r) step_x += b.dx[r] * b.dx[r];
+    const float step = step_x + cluster_scalar(b, 2, cluster);
+    if (single) {
+      if (rank == 0) {
+        for (int i = tid; i < 12 * K; i += kBaThreads) pose_out[i] = b.pose_new[i];
+        if (tid == 0) { out_scal[0] = cur_cost; out_scal[1] = new_cost; out_scal[2] = step; out_scal[3] = 0.0f; }
+      }
+      for (int d = 0; d < 3; ++d)
+        for (int m = b.m0 + tid; m < b.m1; m += kBaThreads) pts_out[d * M + m] = b.pts[1][d * M + m];
+      break;
+    }
+    const bool accept = new_cost < cur_cost;
     if (accept) {
-      for (int i = threadIdx.x; i < 12 * c.K; i += blockDim.x) c.pose[i] = c.pose_new[i];
-      if (c.fixedpt != nullptr) cur = 1 - cur;
+      for (int i = tid; i < 12 * K; i += kBaThreads) b.pose[i] = b.pose_new[i];
+      cur = 1 - cur;
     }
     lam = accept ? fmaxf(lam * 0.5f, 1e-9f) : fminf(lam * 4.0f, 1e6f);
-    done = (accept && ((o[2] < step_tol) || ((o[0] - o[1]) < rel_tol * o[0]))) || (lam > 1e5f);
-    cost = accept ? o[1] : o[0];
+    done = (accept && ((step < p.step_tol) || ((cur_cost - new_cost) < p.rel_tol * cur_cost))) || (lam > 1e5f);
+    cost = accept ? new_cost : cur_cost;
+    relin = accept;
     ++it;
     __syncthreads();
   }
-  *cost_out = cost;
-  *iters_out = it;
-}
-
-__device__ void carve(Ctx& c, float* smem, bool with_seg) {
-  const int K = c.K, n = 6 * K;
-  const int nwarps = blockDim.x >> 5, nseg = blockDim.x / c.G;
-  float* s = smem;
-  c.aug = s;      s += n * (n + 1);
-  c.prow = s;     s += n + 1;
-  c.colv = s;     s += n;
-  c.dx = s;       s += n;
-  c.pose = s;     s += 12 * K;
-  c.pose_new = s; s += 12 * K;
-  c.part = s;     s += nwarps * K * kPart;
-  c.usum = s;     s += K * kPart;
-  c.red = s;      s += 64;
-  c.seg = with_seg ? s : nullptr;
-  (void)nseg;
-}
-
-size_t smem_floats(int K, int G, bool with_seg) {
-  const int n = 6 * K, nwarps = kThreads / 32, nseg = kThreads / G;
-  size_t f = (size_t)n * (n + 1) + (n + 1) + n + n + 24 * K + nwarps * K * kPart + K * kPart + 64;
-  if (with_seg) f += (size_t)nseg * 2 * K * 18;
-  return f;
-}
-
-int seg_size(int K) {
-  int g = 1;
-  while (g < K) g <<= 1;
-  return g;
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-ba_kernel(const float* pose_in, const float* pts_in, const float* obs_u, const float* obs_v,
-          const float* wmask, const float* fixedpt, const float* fm, float* pose_out,
-          float* pts_out, float* out_scal, float* scratch, int K, int M, int G, LmParams p,
-          int single) {
-  extern __shared__ float smem[];
-  Ctx c;
-  c.K = K; c.M = M; c.G = G; c.p = p;
-  c.obs_u = obs_u; c.obs_v = obs_v; c.wmask = wmask; c.fixedpt = fixedpt; c.fm = fm;
-  c.wbuf = scratch;
-  c.vib = scratch + (size_t)M * K * 18;
-  c.pts[0] = pts_out;
-  c.pts[1] = c.vib + (size_t)M * 12;
-  carve(c, smem, true);
-  for (int i = threadIdx.x; i < 3 * M; i += blockDim.x) pts_out[i] = pts_in[i];
-  for (int i = threadIdx.x; i < 12 * K; i += blockDim.x) c.pose[i] = pose_in[i];
-  __syncthreads();
-  int cur = 0;
-  if (single) {
-    float o[3];
-    lm_iteration(c, cur, p.lam0, o);
-    for (int i = threadIdx.x; i < 12 * K; i += blockDim.x) pose_out[i] = c.pose_new[i];
-    for (int i = threadIdx.x; i < 3 * M; i += blockDim.x) pts_out[i] = c.pts[1][i];
-    if (threadIdx.x == 0) { out_scal[0] = o[0]; out_scal[1] = o[1]; out_scal[2] = o[2]; out_scal[3] = 0.0f; }
-    return;
-  }
-  float cost;
-  int iters;
-  lm_loop(c, cur, p.lam0, p.max_iterations, p.step_tol, p.rel_tol, &cost, &iters);
-  for (int i = threadIdx.x; i < 12 * K; i += blockDim.x) pose_out[i] = c.pose[i];
-  if (cur == 1)
-    for (int i = threadIdx.x; i < 3 * M; i += blockDim.x) pts_out[i] = c.pts[1][i];
-  if (threadIdx.x == 0) { out_scal[0] = cost; out_scal[1] = (float)iters; out_scal[2] = 0.0f; out_scal[3] = 0.0f; }
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-pnp_kernel(const float* pose_in, const float* pts, const float* obs_u, const float* obs_v,
-           const float* active, const float* marg, float* pose_out, float* outlier,
-           float* wmask, float* out_scal, int M, LmParams p) {
-  extern __shared__ float smem[];
-  Ctx c;
-  c.K = 1; c.M = M; c.G = 1; c.p = p;
-  c.obs_u = obs_u; c.obs_v = obs_v; c.wmask = wmask; c.fixedpt = nullptr;
-  c.wbuf = nullptr; c.vib = nullptr;
-  c.pts[0] = const_cast<float*>(pts);
-  c.pts[1] = nullptr;
-  carve(c, smem, false);
-  __shared__ float fm1;
-  if (threadIdx.x == 0) fm1 = 1.0f;
-  c.fm = &fm1;
-  for (int m = threadIdx.x; m < M; m += blockDim.x) outlier[m] = 0.0f;
-  float final_cost = 0.0f, n_inl = 0.0f, n_out = 0.0f;
-  for (int r = 0; r < p.rounds; ++r) {
-    __syncthreads();
-    for (int m = threadIdx.x; m < M; m += blockDim.x) wmask[m] = active[m] * (1.0f - outlier[m]);
-    for (int i = threadIdx.x; i < 12; i += blockDim.x) c.pose[i] = pose_in[i];
-    __syncthreads();
-    int cur = 0, iters;
-    float cost;
-    lm_loop(c, cur, p.lam0, p.max_iterations, p.step_tol, p.rel_tol, &cost, &iters);
-    // chi2 classification at the solution (raw wrapped residuals)
-    float s_cost = 0.0f, s_inl = 0.0f, s_out = 0.0f;
-    for (int m = threadIdx.x; m < M; m += blockDim.x) {
-      Obs o;
-      evaluate(c.pose, pts[m], pts[M + m], pts[2 * M + m], obs_u[m], obs_v[m], p, o);
-      const float out = active[m] * (1.0f - marg[m]) * (o.c2 > p.chi2_threshold ? 1.0f : 0.0f);
-      outlier[m] = out;
-      const float inl = active[m] * (1.0f - out);
-      s_inl += inl;
-      s_cost += inl * o.c2;
-      s_out += out;
+  if (!single) {
+    if (rank == 0) {
+      for (int i = tid; i < 12 * K; i += kBaThreads) pose_out[i] = b.pose[i];
+      if (tid == 0) { out_scal[0] = cost; out_scal[1] = (float)it; out_scal[2] = 0.0f; out_scal[3] = 0.0f; }
     }
-    n_inl = block_sum(s_inl, c.red);
-    const float tot = block_sum(s_cost, c.red);
-    n_out = block_sum(s_out, c.red);
-    final_cost = tot / fmaxf(n_inl, 1.0f);
+    if (cur == 1)
+      for (int d = 0; d < 3; ++d)
+        for (int m = b.m0 + tid; m < b.m1; m += kBaThreads) pts_out[d * M + m] = b.pts[1][d * M + m];
   }
-  for (int i = threadIdx.x; i < 12; i += blockDim.x) pose_out[i] = c.pose[i];
-  if (threadIdx.x == 0) { out_scal[0] = final_cost; out_scal[1] = n_inl; out_scal[2] = n_out; out_scal[3] = 0.0f; }
+  cluster.sync();  // no CTA leaves while another may still read its shared memory
 }
 
-int launch_check(cudaError_t e) {
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+// ---------------------------------------------------------------------------
+// K1: PnP in one CTA
+// ---------------------------------------------------------------------------
+
+// The warp's sums of 32 per-thread values, scattered over its lanes: after
+// 16 + 8 + 4 + 2 + 1 shuffles lane l holds the warp's sum of value l (a
+// butterfly per value would take 5 x 32), stored to slot[warp][lane].
+__device__ __forceinline__ void warp_scatter(float (&v)[32], float (*slot)[32]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 16; s >= 1; s >>= 1) {
+    const bool upper = lane & s;
+#pragma unroll
+    for (int i = 0; i < s; ++i) {
+      const float send = upper ? v[i] : v[i + s];
+      const float keep = upper ? v[i + s] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, s);
+    }
+  }
+  slot[threadIdx.x >> 5][lane] = v[0];
+}
+
+// Lane l of warp 0, after the barrier that follows warp_scatter: the
+// block's sum of value l, over the warps in order.
+__device__ __forceinline__ float slot_sum(const float (*slot)[32]) {
+  const int lane = threadIdx.x & 31;
+  float x[kPnpWarps];
+#pragma unroll
+  for (int w = 0; w < kPnpWarps; ++w) x[w] = slot[w][lane];
+  float s = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kPnpWarps; ++w) s += x[w];
+  return s;
+}
+
+// One pass over this thread's landmarks at `pose`: U (upper 21), b (6)
+// and the Huber cost (before the 1/2) into v[0..27]; v[28..31] stay 0.
+__device__ __forceinline__ void pnp_accumulate(const float* pose, const float* pts, const float* obs,
+                                               const unsigned char* active, const unsigned char* outlier,
+                                               int M, const LmParams& p, float (&v)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) v[i] = 0.0f;
+  for (int m = threadIdx.x; m < M; m += kPnpThreads) {
+    const float wm = active[m] && !outlier[m] ? 1.0f : 0.0f;
+    Obs o;
+    evaluate(pose, pts[3 * m], pts[3 * m + 1], pts[3 * m + 2], obs[2 * m], obs[2 * m + 1], p, o);
+    v[27] += huber_rho(o.c2, p.huber_delta) * wm;
+    const float w = irls_weight(o, wm, p);
+    float jp[2][6], jl[2][3];
+    jacobians(pose, o, p, jp, jl);
+    int u = 0;
+#pragma unroll
+    for (int a = 0; a < 6; ++a) {
+#pragma unroll
+      for (int c = a; c < 6; ++c) v[u++] += w * (jp[0][a] * jp[0][c] + jp[1][a] * jp[1][c]);
+      v[21 + a] += -(w * (jp[0][a] * o.du + jp[1][a] * o.dv));
+    }
+  }
+}
+
+// Thread 0: the damped 6x6 system of sums s by the reference's unpivoted
+// Gauss-Jordan in registers, then the retraction of pose into pose_new;
+// returns |dx|^2.
+__device__ float pnp_step(const float* s, const float* pose, float lam, int diag_damping, float* pose_new) {
+  float a[6][7];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+#pragma unroll
+    for (int f = 0; f < 6; ++f) a[c][f] = damped_u(s, c, f, lam, diag_damping);
+    a[c][6] = s[21 + c];
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const float piv = a[i][i];
+    float pr[7];
+#pragma unroll
+    for (int j = 0; j < 7; ++j) pr[j] = a[i][j] / piv;
+#pragma unroll
+    for (int r = 0; r < 6; ++r) {
+      if (r == i) continue;
+      const float col = a[r][i];
+#pragma unroll
+      for (int j = 0; j < 7; ++j) a[r][j] -= col * pr[j];
+    }
+#pragma unroll
+    for (int j = 0; j < 7; ++j) a[i][j] = pr[j];
+  }
+  const float rho[3] = {a[0][6], a[1][6], a[2][6]};
+  const float wv[3] = {a[3][6], a[4][6], a[5][6]};
+  retract(pose, rho, wv, pose_new);
+  float step = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 6; ++c) step += a[c][6] * a[c][6];
+  return step;
+}
+
+// Per LM iteration: every thread evaluates its landmarks at the trial pose
+// and scatters its warp's 28 sums (barrier 1); warp 0 sums the slots and
+// thread 0, which alone holds the loop state (lambda, cost, iteration,
+// which pose buffer is accepted), takes the accept/reject and solves the
+// next step into the other pose buffer (barrier 2). pose[b] and sums[b]
+// belong together: the sums are the linearization at that pose.
+__global__ void __launch_bounds__(kPnpThreads, 1)
+pnp_kernel(const float* r_in, const float* t_in, const float* pts, const float* obs,
+           const unsigned char* active, const unsigned char* marg, float* r_out, float* t_out,
+           unsigned char* outlier, float* cost_out, int* counts, int M, LmParams p) {
+  __shared__ float pose[2][12];
+  __shared__ float sums[2][32];
+  __shared__ float slot[kPnpWarps][32];
+  __shared__ int ctl[3];  // pose buffer of the next pass, done, accepted buffer
+  const int tid = threadIdx.x;
+  for (int m = tid; m < M; m += kPnpThreads) outlier[m] = 0;
+  // loop state, live in thread 0
+  int cb = 0, it = 0, total_it = 0;
+  float lam = p.lam0, cur = 0.0f, step = 0.0f;
+  float final_cost = 0.0f, n_inl = 0.0f, n_out = 0.0f;
+  float v[32];
+  int acc = 0;  // every thread's copy of the accepted pose buffer
+  for (int round = 0; round < p.rounds; ++round) {
+    if (tid < 12) pose[0][tid] = tid < 9 ? r_in[tid] : t_in[tid - 9];
+    __syncthreads();
+    int nb = 0;
+    acc = 0;
+    for (bool first = true;; first = false) {
+      pnp_accumulate(pose[nb], pts, obs, active, outlier, M, p, v);
+      warp_scatter(v, slot);
+      __syncthreads();
+      if (tid < 32) {
+        sums[nb][tid] = slot_sum(slot);
+        __syncwarp();
+        if (tid == 0) {
+          bool done;
+          if (first) {  // round start: the linearization at the initial pose
+            cb = 0;
+            cur = 0.5f * sums[0][27];
+            lam = p.lam0;
+            it = 0;
+            done = it >= p.max_iterations;
+          } else {
+            const float nw = 0.5f * sums[nb][27];
+            const bool accept = nw < cur;
+            if (accept) cb = nb;  // the trial pass is the next linearization
+            lam = accept ? fmaxf(lam * 0.5f, 1e-9f) : fminf(lam * 4.0f, 1e6f);
+            done = (accept && ((step < p.step_tol) || ((cur - nw) < p.rel_tol * cur))) || (lam > 1e5f);
+            if (accept) cur = nw;
+            ++it;
+            done = done || it >= p.max_iterations;
+          }
+          // after a reject the stored sums of pose[cb] are solved again
+          if (!done) step = pnp_step(sums[cb], pose[cb], lam, p.diag_damping, pose[1 - cb]);
+          else total_it += it;
+          ctl[0] = 1 - cb;
+          ctl[1] = done;
+          ctl[2] = cb;
+        }
+      }
+      __syncthreads();
+      nb = ctl[0];
+      acc = ctl[2];
+      if (ctl[1]) break;
+    }
+    // chi2 classification at the solution (raw wrapped residuals);
+    // marginalized landmarks are never outliers
+#pragma unroll
+    for (int i = 0; i < 32; ++i) v[i] = 0.0f;
+    for (int m = tid; m < M; m += kPnpThreads) {
+      Obs o;
+      evaluate(pose[acc], pts[3 * m], pts[3 * m + 1], pts[3 * m + 2], obs[2 * m], obs[2 * m + 1], p, o);
+      const bool out = active[m] && !marg[m] && o.c2 > p.chi2_threshold;
+      outlier[m] = out;
+      const float inl = active[m] && !out ? 1.0f : 0.0f;
+      v[0] += inl;
+      v[1] += inl * o.c2;
+      v[2] += out ? 1.0f : 0.0f;
+    }
+    warp_scatter(v, slot);
+    __syncthreads();
+    if (tid < 32) {
+      sums[0][tid] = slot_sum(slot);  // pose[0] is rewritten below, sums[0] with it
+      __syncwarp();
+      if (tid == 0) {
+        n_inl = sums[0][0];
+        final_cost = sums[0][1] / fmaxf(n_inl, 1.0f);
+        n_out = sums[0][2];
+      }
+    }
+    __syncthreads();  // pose[acc] read before the next round rewrites pose[0]
+  }
+  if (tid < 12) {
+    const float x = p.rounds > 0 ? pose[acc][tid] : tid < 9 ? r_in[tid] : t_in[tid - 9];
+    if (tid < 9) r_out[tid] = x;
+    else t_out[tid - 9] = x;
+  }
+  if (tid == 0) {
+    *cost_out = final_cost;
+    counts[0] = (int)n_inl;
+    counts[1] = (int)n_out;
+    counts[2] = total_it;
+  }
+}
+
+cudaLaunchConfig_t ba_config(int K, cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster, 1, 1);
+  cfg.blockDim = dim3(kBaThreads, 1, 1);
+  cfg.dynamicSmemBytes = ba_smem_floats(K, seg_size(K)) * sizeof(float);
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The kernel's attributes, set once for the largest shape (K = kMaxK),
+// then how many clusters at K fit on the card at once (0: the cluster
+// cannot launch).
+cudaError_t ba_fit(int K, cudaStream_t stream, int* max_clusters) {
+  static bool attrs_set = false;
+  if (!attrs_set) {
+    cudaError_t e = cudaFuncSetAttribute((const void*)ba_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)(ba_smem_floats(kMaxK, seg_size(kMaxK)) * sizeof(float)));
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute((const void*)ba_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    attrs_set = true;
+  }
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = ba_config(K, stream, attr);
+  return cudaOccupancyMaxActiveClusters(max_clusters, (void*)ba_kernel, &cfg);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K2 (single = 0) and K3 (single = 1). scratch: M*K*18 + M*12 + 3*M floats.
+// K2 (single = 0) and K3 (single = 1): one cluster of kCluster CTAs.
+// scratch: M*K*18 + M*9 + M*9 + 3*M floats.
 int lm_ba(const float* pose_in, const float* pts_in, const float* obs_u, const float* obs_v,
           const float* wmask, const float* fixedpt, const float* fm, float* pose_out,
           float* pts_out, float* out_scal, float* scratch, int K, int M, const LmParams* p,
           int single, void* stream) {
   if (K < 1 || K > kMaxK || M < 1) return (int)cudaErrorInvalidValue;
-  const int G = seg_size(K);
-  const size_t smem = smem_floats(K, G, true) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(ba_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static int fits[kMaxK + 1];  // max active clusters + 1 per K; 0 = not asked yet
+  if (fits[K] == 0) {
+    int max_clusters = 0;
+    const cudaError_t e = ba_fit(K, (cudaStream_t)stream, &max_clusters);
+    if (e != cudaSuccess) return (int)e;
+    fits[K] = max_clusters + 1;
+  }
+  if (fits[K] < 2) return (int)cudaErrorLaunchOutOfResources;  // the cluster does not fit
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = ba_config(K, (cudaStream_t)stream, attr);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, ba_kernel, pose_in, pts_in, obs_u, obs_v, wmask, fixedpt,
+                                           fm, pose_out, pts_out, out_scal, scratch, K, M, *p, single);
   if (e != cudaSuccess) return (int)e;
-  ba_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(pose_in, pts_in, obs_u, obs_v, wmask,
-                                                         fixedpt, fm, pose_out, pts_out, out_scal,
-                                                         scratch, K, M, G, *p, single);
-  return launch_check(cudaSuccess);
+  return (int)cudaGetLastError();
 }
 
-// K1. wmask: M floats of scratch.
-int lm_pnp(const float* pose_in, const float* pts, const float* obs_u, const float* obs_v,
-           const float* active, const float* marg, float* pose_out, float* outlier, float* wmask,
-           float* out_scal, int M, const LmParams* p, void* stream) {
+// The launch shape of lm_ba: CTAs per cluster, dynamic shared memory per
+// CTA (bytes) and how many clusters of that shape fit on the card.
+int lm_ba_info(int K, int* cluster_ctas, int* smem_bytes, int* max_clusters) {
+  if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
+  *cluster_ctas = kCluster;
+  *smem_bytes = (int)(ba_smem_floats(K, seg_size(K)) * sizeof(float));
+  return (int)ba_fit(K, 0, max_clusters);
+}
+
+// K1. Inputs: r [9], t [3], points [M][3], observations [M][2], active
+// and marginalized [M] bytes; outputs: r, t, outlier bytes [M], the final
+// mean inlier chi2, counts = (inliers, outliers, LM iterations).
+int lm_pnp(const float* r_in, const float* t_in, const float* pts, const float* obs,
+           const unsigned char* active, const unsigned char* marg, float* r_out, float* t_out,
+           unsigned char* outlier, float* cost_out, int* counts, int M, const LmParams* p, void* stream) {
   if (M < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_floats(1, 1, false) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(pnp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  pnp_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(pose_in, pts, obs_u, obs_v, active, marg,
-                                                          pose_out, outlier, wmask, out_scal, M, *p);
-  return launch_check(cudaSuccess);
+  pnp_kernel<<<1, kPnpThreads, 0, (cudaStream_t)stream>>>(r_in, t_in, pts, obs, active, marg, r_out, t_out,
+                                                          outlier, cost_out, counts, M, *p);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

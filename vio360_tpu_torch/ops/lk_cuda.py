@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 
 import torch
 
@@ -109,26 +110,39 @@ def _flat(levels: list[torch.Tensor]) -> torch.Tensor:
     return torch.cat([lv.reshape(-1) for lv in levels]).contiguous()
 
 
-def track(img_prev, img_next, uv_prev, valid_in, uv_guess=None, num_levels=3, half_win=10,
-          iters=30, eps=0.01):
-    """K4 on CUDA tensors, ``track_plain`` on CPU tensors."""
-    if not check_kernel_device(img_prev, "lk track"):
-        return track_plain(img_prev, img_next, uv_prev, valid_in, uv_guess, num_levels,
-                           half_win, iters, eps)
+@dataclasses.dataclass
+class Prepared:
+    """K4's inputs on the card: the flattened pyramids of both images and
+    the previous image's Scharr gradients, their level table, and the
+    feature arrays."""
+
+    buf_i: torch.Tensor
+    buf_j: torch.Tensor
+    buf_gx: torch.Tensor
+    buf_gy: torch.Tensor
+    meta: _LevelMeta
+    uv_prev: torch.Tensor
+    uv_guess: torch.Tensor
+    valid: torch.Tensor
+    width: int
+
+
+def prepare(img_prev, img_next, uv_prev, valid_in, uv_guess=None, num_levels=3) -> Prepared:
+    """Everything ``track`` does on the card before K4's launch: checks,
+    pyramids, gradients and the flat level buffers."""
     dev = img_prev.device
     n = uv_prev.shape[0]
     if img_prev.dim() != 2 or img_next.shape != img_prev.shape:
         raise ValueError("lk_pyr: images must be equal-size [H, W]")
     if uv_prev.shape != (n, 2) or valid_in.shape != (n,):
         raise ValueError("lk_pyr: uv_prev [N, 2] and valid_in [N] expected")
-    if not 0 <= num_levels < _MAX_LEVELS or not 1 <= half_win <= _MAX_HALF:
-        raise ValueError(f"lk_pyr: num_levels {num_levels} / half_win {half_win} out of range")
+    if not 0 <= num_levels < _MAX_LEVELS:
+        raise ValueError(f"lk_pyr: num_levels {num_levels} out of range")
     for name, t in dict(img_next=img_next, uv_prev=uv_prev, valid_in=valid_in).items():
         if t.device != dev:
             raise ValueError(f"lk_pyr: {name} on {t.device}, expected {dev}")
     img_prev = img_prev.to(torch.float32).contiguous()
     img_next = img_next.to(torch.float32).contiguous()
-    w = img_prev.shape[1]
     pyr_i = build_pyramid(img_prev, num_levels)
     pyr_j = build_pyramid(img_next, num_levels)
     grads = [scharr_gradients(im) for im in pyr_i]
@@ -138,21 +152,43 @@ def track(img_prev, img_next, uv_prev, valid_in, uv_guess=None, num_levels=3, ha
     for lvl, im in enumerate(pyr_i):
         meta.h[lvl], meta.w[lvl], meta.offset[lvl] = im.shape[0], im.shape[1], off
         off += im.numel()
-    buf_i, buf_j = _flat(pyr_i), _flat(pyr_j)
-    buf_gx, buf_gy = _flat([g[0] for g in grads]), _flat([g[1] for g in grads])
-    uv_p = uv_prev.to(torch.float32).contiguous()
-    uv_g = (uv_prev if uv_guess is None else uv_guess).to(torch.float32).contiguous()
-    valid = valid_in.to(torch.bool).contiguous()
+    return Prepared(
+        buf_i=_flat(pyr_i), buf_j=_flat(pyr_j), buf_gx=_flat([g[0] for g in grads]),
+        buf_gy=_flat([g[1] for g in grads]), meta=meta,
+        uv_prev=uv_prev.to(torch.float32).contiguous(),
+        uv_guess=(uv_prev if uv_guess is None else uv_guess).to(torch.float32).contiguous(),
+        valid=valid_in.to(torch.bool).contiguous(), width=img_prev.shape[1],
+    )
+
+
+def launch(prep: Prepared, half_win=10, iters=30, eps=0.01):
+    """K4 alone on prepared buffers -> (uv, status, err) as ``track``."""
+    if not 1 <= half_win <= _MAX_HALF:
+        raise ValueError(f"lk_pyr: half_win {half_win} out of range")
+    dev = prep.uv_prev.device
+    n = prep.uv_prev.shape[0]
     uv_out = torch.empty(n, 2, dtype=torch.float32, device=dev)
     status = torch.empty(n, dtype=torch.bool, device=dev)
     err = torch.empty(n, dtype=torch.float32, device=dev)
     lib = cuda_build.load("lk_pyr", _SIGS)
     ptr = cuda_build.ptr
     rc = lib.lk_pyr(
-        ptr(buf_i), ptr(buf_j), ptr(buf_gx), ptr(buf_gy), ptr(uv_p), ptr(uv_g), ptr(valid),
-        ptr(uv_out), ptr(status), ptr(err), ctypes.byref(meta), n, half_win, iters,
-        float(eps * eps), MIN_EIG_THRESHOLD, cuda_build.stream_ptr(dev),
+        ptr(prep.buf_i), ptr(prep.buf_j), ptr(prep.buf_gx), ptr(prep.buf_gy), ptr(prep.uv_prev),
+        ptr(prep.uv_guess), ptr(prep.valid), ptr(uv_out), ptr(status), ptr(err),
+        ctypes.byref(prep.meta), n, half_win, iters, float(eps * eps), MIN_EIG_THRESHOLD,
+        cuda_build.stream_ptr(dev),
     )
     cuda_build.check(rc, "lk_pyr launch")
     LAUNCHES["lk_pyr"] += 1
-    return _finish(uv_out, status, err, uv_p, w)
+    return _finish(uv_out, status, err, prep.uv_prev, prep.width)
+
+
+def track(img_prev, img_next, uv_prev, valid_in, uv_guess=None, num_levels=3, half_win=10,
+          iters=30, eps=0.01):
+    """K4 on CUDA tensors (``prepare`` then ``launch``), ``track_plain``
+    on CPU tensors."""
+    if not check_kernel_device(img_prev, "lk track"):
+        return track_plain(img_prev, img_next, uv_prev, valid_in, uv_guess, num_levels,
+                           half_win, iters, eps)
+    return launch(prepare(img_prev, img_next, uv_prev, valid_in, uv_guess, num_levels), half_win,
+                  iters, eps)

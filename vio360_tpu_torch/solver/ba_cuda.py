@@ -12,6 +12,22 @@ on a CPU tensor it runs the plain version beside it, a transliteration
 of ``_lm_iteration`` / ``_lm_loop`` / ``_pnp_solve_kernel`` on [K, M]
 planes with the same cephes atan polynomials. ``LAUNCHES`` counts
 kernel launches only.
+
+Launch shapes: K2 and K3 are one launch of ONE thread-block cluster of
+16 CTAs x 512 threads (``ba_launch_info``); each CTA owns a contiguous
+range of landmarks and the CTAs sum their partials over distributed
+shared memory in rank order, so two calls on the same inputs return the
+same bits and iteration count. K1 is one CTA of 512 threads that reads
+f32 points and observations and bool masks in the caller's layout and
+writes ``pnp_solve``'s outputs itself, so on the main path its wrapper
+launches nothing else. K2/K3 take a scratch buffer of M*K*18 (W blocks) + M*9 (V upper,
+b_l) + M*9 (damped V^-1) + 3*M (trial landmarks) floats. A launch that
+fails, a cluster that does not fit on the card included, raises.
+
+The plain ``_lm_iteration`` is ``_damped_step(_linearize(...))``: the
+first half depends on the state only, the second on the damping too,
+which is what lets the kernels skip the linearization after a rejected
+step (``tests/test_torch_lm_schedule.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +35,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import math
+import weakref
 
 import torch
 
@@ -49,18 +66,32 @@ class _LmParams(ctypes.Structure):
     ]
 
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 _SIGS = {
     "lm_ba": [_VP] * 11 + [_I, _I, ctypes.POINTER(_LmParams), _I, _VP],
-    "lm_pnp": [_VP] * 10 + [_I, ctypes.POINTER(_LmParams), _VP],
+    "lm_ba_info": [_I, _IP, _IP, _IP],
+    "lm_pnp": [_VP] * 11 + [_I, ctypes.POINTER(_LmParams), _VP],
 }
+
+# id(tensor) -> (weak reference, version, its values): the extrinsic is the
+# same tensor on every call of the main path, and reading it to the host
+# would wait for the card each time.
+_HOST_VALUES: dict[int, tuple] = {}
+
+
+def _host_floats(t: torch.Tensor) -> list[float]:
+    hit = _HOST_VALUES.get(id(t))
+    if hit is not None and hit[0]() is t and hit[1] == t._version:
+        return hit[2]
+    vals = [float(x) for x in t.detach().reshape(-1).cpu().tolist()]
+    _HOST_VALUES[id(t)] = (weakref.ref(t, lambda _, key=id(t): _HOST_VALUES.pop(key, None)), t._version, vals)
+    return vals
 
 
 def _params(width, height, pixel_noise_std, huber_delta, lam, r_cb, t_cb, *,
             step_tol, rel_tol=1e-6, chi2_threshold=0.0, diag_damping=False,
             max_iterations=0, rounds=0) -> _LmParams:
-    rcb = [float(x) for x in r_cb.detach().reshape(9).cpu().tolist()]
-    tcb = [float(x) for x in t_cb.detach().reshape(3).cpu().tolist()]
+    rcb, tcb = _host_floats(r_cb), _host_floats(t_cb)
     return _LmParams(
         float(width), float(height), width / _TWO_PI, height / _PI,
         float(huber_delta), 1.0 / (pixel_noise_std * pixel_noise_std), float(lam),
@@ -126,20 +157,17 @@ def _pose_cols(pose12):
     return r, t
 
 
-def _lm_iteration(pose12, px, py, pz, obs_u, obs_v, wmask, fixedpt, fm, lam, rcb, tcb,
-                  inv_s2, *, k, width, height, huber_delta, diag_damping):
-    """Twin of ba_pallas._lm_iteration. pose12 [K, 12]; px/py/pz/fixedpt
-    [1, M]; planes [K, M]; fm [6K] free-pose mask in (c, k) order; rcb /
-    tcb as nested lists of 0-d tensors. Returns (pose_new, px_new,
-    py_new, pz_new, cur_cost, new_cost, step_sq)."""
+def _linearize(pose12, px, py, pz, obs_u, obs_v, wmask, rcb, tcb, inv_s2, *, width, height,
+               huber_delta):
+    """The state-dependent half of ``_lm_iteration``: residuals, IRLS
+    weights and Jacobians at (pose12, px, py, pz) -> (u_blk, b_p, v_blk,
+    b_l, w_blk, cur_cost). Nothing here depends on lam."""
     d2 = huber_delta * huber_delta
     cu, cv = width / _TWO_PI, height / _PI
     r, t = _pose_cols(pose12)
 
-    def evaluate(r, t, px, py, pz):
-        return _evaluate_plane(r, t, px, py, pz, obs_u, obs_v, wmask, rcb, tcb, inv_s2, width, height, huber_delta)
-
-    pb, pc, du, dv, c2, cur_cost = evaluate(r, t, px, py, pz)
+    pb, pc, du, dv, c2, cur_cost = _evaluate_plane(r, t, px, py, pz, obs_u, obs_v, wmask, rcb, tcb,
+                                                   inv_s2, width, height, huber_delta)
     w_huber = torch.where(c2 <= d2, torch.ones_like(c2), huber_delta / torch.sqrt(torch.clamp(c2, min=1e-20))) * inv_s2
     big = (torch.abs(du) > MAX_PIXEL_ERROR) | (torch.abs(dv) > MAX_PIXEL_ERROR)
     w = torch.where(big, torch.zeros_like(c2), w_huber * wmask)
@@ -176,7 +204,17 @@ def _lm_iteration(pose12, px, py, pz, obs_u, obs_v, wmask, fixedpt, fm, lam, rcb
             v_blk[d][e] = v_blk[e][d] = s
     b_l = [-(w * (jl[0][d] * res[0] + jl[1][d] * res[1])).sum(0, keepdim=True) for d in range(3)]
     w_blk = [[w * (jp[0][c] * jl[0][d] + jp[1][c] * jl[1][d]) for d in range(3)] for c in range(6)]
+    return u_blk, b_p, v_blk, b_l, w_blk, cur_cost
 
+
+def _damped_step(lin, pose12, px, py, pz, obs_u, obs_v, wmask, fixedpt, fm, lam, rcb, tcb, inv_s2,
+                 *, k, width, height, huber_delta, diag_damping):
+    """The lam-dependent half of ``_lm_iteration`` from a linearization
+    ``lin`` of (pose12, px, py, pz): damped Schur system, unpivoted
+    Gauss-Jordan, back-substitution, retraction and the trial cost ->
+    (pose_new, px_new, py_new, pz_new, new_cost, step_sq)."""
+    u_blk, b_p, v_blk, b_l, w_blk, _ = lin
+    r, t = _pose_cols(pose12)
     if diag_damping:
         u_d = [[u_blk[c][f] * (1.0 + lam if c == f else 1.0) + (1e-10 if c == f else 0.0) for f in range(6)] for c in range(6)]
     else:
@@ -257,10 +295,25 @@ def _lm_iteration(pose12, px, py, pz, obs_u, obs_v, wmask, fixedpt, fm, lam, rcb
     r_new = [[r[i][0] * dr[0][j] + r[i][1] * dr[1][j] + r[i][2] * dr[2][j] for j in range(3)] for i in range(3)]
     t_new = [r[i][0] * dt[0] + r[i][1] * dt[1] + r[i][2] * dt[2] + t[i] for i in range(3)]
     px_new, py_new, pz_new = px + dl[0], py + dl[1], pz + dl[2]
-    *_, new_cost = evaluate(r_new, t_new, px_new, py_new, pz_new)
+    *_, new_cost = _evaluate_plane(r_new, t_new, px_new, py_new, pz_new, obs_u, obs_v, wmask, rcb,
+                                   tcb, inv_s2, width, height, huber_delta)
     step_sq = (x * x).sum() + (dl[0] * dl[0] + dl[1] * dl[1] + dl[2] * dl[2]).sum()
     pose_new = torch.cat([r_new[i][j] for i in range(3) for j in range(3)] + t_new, 1)
-    return pose_new, px_new, py_new, pz_new, cur_cost, new_cost, step_sq
+    return pose_new, px_new, py_new, pz_new, new_cost, step_sq
+
+
+def _lm_iteration(pose12, px, py, pz, obs_u, obs_v, wmask, fixedpt, fm, lam, rcb, tcb,
+                  inv_s2, *, k, width, height, huber_delta, diag_damping):
+    """Twin of ba_pallas._lm_iteration. pose12 [K, 12]; px/py/pz/fixedpt
+    [1, M]; planes [K, M]; fm [6K] free-pose mask in (c, k) order; rcb /
+    tcb as nested lists of 0-d tensors. Returns (pose_new, px_new,
+    py_new, pz_new, cur_cost, new_cost, step_sq)."""
+    lin = _linearize(pose12, px, py, pz, obs_u, obs_v, wmask, rcb, tcb, inv_s2, width=width,
+                     height=height, huber_delta=huber_delta)
+    pose_new, px_new, py_new, pz_new, new_cost, step_sq = _damped_step(
+        lin, pose12, px, py, pz, obs_u, obs_v, wmask, fixedpt, fm, lam, rcb, tcb, inv_s2, k=k,
+        width=width, height=height, huber_delta=huber_delta, diag_damping=diag_damping)
+    return pose_new, px_new, py_new, pz_new, lin[-1], new_cost, step_sq
 
 
 def _lm_loop(pose0, px0, py0, pz0, obs_u, obs_v, wmask, fixedpt, fm, lam0, rcb, tcb, inv_s2, *,
@@ -376,6 +429,7 @@ def _check(name, tensors: dict, device):
 
 def _ba_launch(r_wb, t_wb, points, obs_uv, obs_w, fixed_pose, fixed_point, lam, r_cb, t_cb,
                width, height, pixel_noise_std, huber_delta, diag_damping, max_iterations):
+    """K2 (max_iterations an int) or K3 (None) as one cluster launch."""
     k, m = obs_w.shape
     dev = obs_w.device
     if not 1 <= k <= _MAX_K:
@@ -393,7 +447,7 @@ def _ba_launch(r_wb, t_wb, points, obs_uv, obs_w, fixed_pose, fixed_point, lam, 
     pose_out = torch.empty_like(pose)
     pts_out = torch.empty_like(pts)
     scal = torch.empty(4, dtype=torch.float32, device=dev)
-    scratch = torch.empty(m * k * 18 + m * 12 + 3 * m, dtype=torch.float32, device=dev)
+    scratch = torch.empty(m * k * 18 + m * 9 + m * 9 + 3 * m, dtype=torch.float32, device=dev)
     single = max_iterations is None
     prm = _params(width, height, pixel_noise_std, huber_delta, lam, r_cb, t_cb, step_tol=1e-14,
                   diag_damping=diag_damping, max_iterations=max_iterations or 0)
@@ -409,6 +463,17 @@ def _ba_launch(r_wb, t_wb, points, obs_uv, obs_w, fixed_pose, fixed_point, lam, 
     if single:
         return r, t, pts_out.T, scal[0], scal[1], scal[2]
     return r, t, pts_out.T, scal[0], scal[1].to(torch.int32)
+
+
+def ba_launch_info(k: int) -> dict:
+    """K2/K3's launch shape at K poses: CTAs per cluster, dynamic shared
+    memory per CTA and how many such clusters fit on the card at once
+    (needs the card)."""
+    ctas, smem, fit = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    cuda_build.check(_lib().lm_ba_info(k, ctypes.byref(ctas), ctypes.byref(smem), ctypes.byref(fit)),
+                     "lm_ba_info")
+    return {"cluster_ctas": ctas.value, "threads_per_cta": 512, "smem_bytes_per_cta": smem.value,
+            "max_active_clusters": fit.value}
 
 
 def ba_iteration(r_wb, t_wb, points, obs_uv, obs_w, fixed_pose, fixed_point, lam, r_cb, t_cb,
@@ -438,32 +503,36 @@ def pnp_solve(r_wb, t_wb, points, obs_uv, active, marginalized, lam, r_cb, t_cb,
               max_iterations=50):
     """K1: the whole PnP (rounds x LM + chi2 classification). Returns
     (r_new, t_new, outlier [M] bool, final_cost, n_inl, n_out)."""
+    args = (r_wb, t_wb, points, obs_uv, active, marginalized, float(lam), r_cb, t_cb, width, height,
+            pixel_noise_std, huber_delta, chi2_threshold, rounds, max_iterations)
     if not check_kernel_device(points, "pnp_solve"):
-        return _pnp_plain(r_wb, t_wb, points, obs_uv, active, marginalized, float(lam), r_cb, t_cb,
-                          width, height, pixel_noise_std, huber_delta, chi2_threshold, rounds,
-                          max_iterations)
+        return _pnp_plain(*args)
+    return _pnp_launch(*args)[:6]
+
+
+def _pnp_launch(r_wb, t_wb, points, obs_uv, active, marginalized, lam, r_cb, t_cb, width, height,
+                pixel_noise_std, huber_delta, chi2_threshold, rounds, max_iterations):
+    """K1's launch -> pnp_solve's results and the LM iterations over all rounds."""
     m = points.shape[0]
     dev = points.device
     if obs_uv.shape != (m, 2) or active.shape != (m,) or marginalized.shape != (m,):
         raise ValueError("lm_pnp: inconsistent shapes")
     _check("lm_pnp", dict(r_wb=r_wb, t_wb=t_wb, obs_uv=obs_uv, active=active, marginalized=marginalized), dev)
-    pose = _f32(torch.cat([r_wb.reshape(1, 9), t_wb.reshape(1, 3)], 1))
-    pts = _f32(points.T)
-    obs_u, obs_v = _f32(obs_uv[:, 0]), _f32(obs_uv[:, 1])
-    act, marg = _f32(active), _f32(marginalized)
-    pose_out = torch.empty_like(pose)
-    outlier = torch.empty(m, dtype=torch.float32, device=dev)
-    wmask = torch.empty(m, dtype=torch.float32, device=dev)
-    scal = torch.empty(4, dtype=torch.float32, device=dev)
+    r_in, t_in, pts, obs = _f32(r_wb), _f32(t_wb), _f32(points), _f32(obs_uv)
+    act, marg = (x.to(torch.bool).contiguous().view(torch.uint8) for x in (active, marginalized))
+    r_out = torch.empty(3, 3, dtype=torch.float32, device=dev)
+    t_out = torch.empty(3, dtype=torch.float32, device=dev)
+    outlier = torch.empty(m, dtype=torch.bool, device=dev)
+    cost = torch.empty((), dtype=torch.float32, device=dev)
+    counts = torch.empty(3, dtype=torch.int32, device=dev)  # inliers, outliers, LM iterations
     prm = _params(width, height, pixel_noise_std, huber_delta, lam, r_cb, t_cb, step_tol=1e-16,
                   chi2_threshold=chi2_threshold, diag_damping=True,
                   max_iterations=max_iterations, rounds=rounds)
     ptr = cuda_build.ptr
     err = _lib().lm_pnp(
-        ptr(pose), ptr(pts), ptr(obs_u), ptr(obs_v), ptr(act), ptr(marg), ptr(pose_out),
-        ptr(outlier), ptr(wmask), ptr(scal), m, ctypes.byref(prm), cuda_build.stream_ptr(dev),
+        ptr(r_in), ptr(t_in), ptr(pts), ptr(obs), ptr(act), ptr(marg), ptr(r_out), ptr(t_out),
+        ptr(outlier), ptr(cost), ptr(counts), m, ctypes.byref(prm), cuda_build.stream_ptr(dev),
     )
     cuda_build.check(err, "lm_pnp launch")
     LAUNCHES["lm_pnp"] += 1
-    return (pose_out[0, :9].reshape(3, 3), pose_out[0, 9:], outlier > 0.5, scal[0],
-            scal[1].to(torch.int32), scal[2].to(torch.int32))
+    return r_out, t_out, outlier, cost, counts[0], counts[1], counts[2]
