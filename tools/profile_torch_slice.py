@@ -6,8 +6,9 @@ on the host clock (each frame ends in a device sync), once under
 medians of tracking and keyframe frames, the stage means, and for the
 profiled window its wall time, the device's busy time (union of kernel
 and copy intervals), the launch count and the device time by kernel,
-the LM iteration count of each window-BA launch (K2) in the window, and
-the landmarks and LM iterations of each PnP launch (K1) there.
+the LM iteration count of each window-BA launch (K2) in the window, the
+landmarks and LM iterations of each PnP launch (K1) there, and the
+Gauss-Newton steps of each per-feature LK launch (K4) there.
 The last line of standard output is a JSON summary.
 
     python tools/profile_torch_slice.py DATASET [--lk-backend matmul] [--vo] \\
@@ -31,7 +32,7 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
-_FRAME = [0]  # index of the frame being processed, for the K1 / K2 iteration records
+_FRAME = [0]  # index of the frame being processed, for the K1 / K2 / K4 work records
 
 
 def _run(est, data, n, imu: bool, window=None, prof_ctx=None):
@@ -113,9 +114,15 @@ def main(argv=None) -> int:
     data = VioDataset(args.dataset_dir, image_size=(cfg.camera.width, cfg.camera.height))
     n = min(len(data), args.stop)
 
-    # K2's and K1's LM iteration counts per launch in the unprofiled run
-    # (read after it)
+    # K2's and K1's LM iteration counts and K4's Gauss-Newton steps per
+    # launch in the unprofiled run (read after it)
     k2_iters, k1_iters, solve, pnp_launch = [], [], ba_cuda.ba_solve, ba_cuda._pnp_launch
+    k4_work, lk_launch = [], lk_cuda.launch
+
+    def recording_lk(prep, *a, **kw):
+        work = torch.empty(prep.uv_prev.shape[0], 3, dtype=torch.int32, device=prep.uv_prev.device)
+        k4_work.append((_FRAME[0], work))
+        return lk_launch(prep, *a, work=work, **kw)
 
     def recording_solve(*a, **kw):
         out = solve(*a, **kw)
@@ -127,10 +134,10 @@ def main(argv=None) -> int:
         k1_iters.append((_FRAME[0], a[2].shape[0], out[6]))
         return out
 
-    ba_cuda.ba_solve, ba_cuda._pnp_launch = recording_solve, recording_pnp
+    ba_cuda.ba_solve, ba_cuda._pnp_launch, lk_cuda.launch = recording_solve, recording_pnp, recording_lk
     est = Estimator(cfg, device=args.device)
     times, kinds, _ = _run(est, data, n, not args.vo)
-    ba_cuda.ba_solve, ba_cuda._pnp_launch = solve, pnp_launch
+    ba_cuda.ba_solve, ba_cuda._pnp_launch, lk_cuda.launch = solve, pnp_launch, lk_launch
     stages = {k: v["mean_ms"] for k, v in est.timers.summary().items()}
     med = lambda sel: statistics.median(sel) * 1e3 if sel else None
     after = range(args.start, n)
@@ -162,13 +169,18 @@ def main(argv=None) -> int:
     pnp = [(m, int(it)) for fr, m, it in k1_iters if fr >= args.start]
     print(f"K1 (PnP) launches in frames {args.start}-{n - 1}: {len(pnp)}, landmarks "
           f"{sorted({m for m, _ in pnp})}, LM iterations over the rounds {[it for _, it in pnp]}")
+    k4 = [w[:, 0].double() for fr, w in k4_work if fr >= args.start]
+    k4_sum = [int(w.sum()) for w in k4]
+    print(f"K4 (per-feature LK) launches in frames {args.start}-{n - 1}: {len(k4)}, Gauss-Newton "
+          f"steps per launch {k4_sum}, mean per feature "
+          f"{sum(k4_sum) / max(sum(w.numel() for w in k4), 1):.2f}")
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "frames": [args.start, n - 1],
         "lk_backend": args.lk_backend, "vio": not args.vo, "tracking_frame_ms": track_ms,
         "keyframe_frame_ms": kf_ms, "stage_mean_ms": stages, "window_wall_ms": wall * 1e3,
         "device_busy_ms": busy, "device_events": len(events),
         "top_kernels_ms": {k: v[0] for k, v in top}, "k2_iterations": iters,
-        "k1_iterations": [it for _, it in pnp],
+        "k1_iterations": [it for _, it in pnp], "k4_steps": k4_sum,
     }))
     return 0
 

@@ -2,15 +2,16 @@
 
 Counterpart of ``vio360_tpu/ops/lk_pallas.py`` (``track`` /
 ``_lk_pyr_kernel``). ``track`` launches ``csrc/lk_pyr.cu`` for CUDA
-tensors (all levels fused, one warp per feature) and runs
-``track_plain`` for CPU tensors. ``track_plain`` is the twin of
+tensors (all levels fused, one CTA per feature) and runs ``track_plain``
+for CPU tensors. ``track_plain`` is the twin of
 ``vio360_tpu.ops.lk.track_xla``; the kernel follows the same semantics
 (template at the previous position, Scharr gradients of the previous
 image, horizontal wrap, ``bilinear_sample``'s vertical clamp, per-level
 validity, eps exit), so both return (uv [N,2] with u wrapped into
 [0, W), status [N] bool, err [N] mean |I-J| over the level-0 window).
-The pyramid and gradient images are built outside the kernel with
-``ops/pyramid.py``, as XLA did around the JAX LK.
+The wrapper builds both pyramids (``ops/pyramid.py``) in one batched pass;
+the kernel forms the template's Scharr gradients itself, the way
+``template_staged`` does in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 from .. import cuda_build
 from ..device import check_kernel_device
 from ..geometry.camera import fmod_positive
-from .pyramid import build_pyramid, scharr_gradients
+from .pyramid import build_pyramid, pyr_down, scharr_gradients
 from .sampling import bilinear_sample, patch_coords
 
 MIN_EIG_THRESHOLD = 1.5e-9  # OpenCV's 1e-4 rescaled to [0, 1] intensities
@@ -47,7 +48,7 @@ class _LevelMeta(ctypes.Structure):
 
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGS = {"lk_pyr": [_VP] * 10 + [ctypes.POINTER(_LevelMeta), _I, _I, _I, _F, _F, _VP]}
+_SIGS = {"lk_pyr": [_VP] * 8 + [ctypes.POINTER(_LevelMeta), _I, _I, _I, _F, _F, _VP]}
 
 
 def _finish(uv, status, err, uv_prev, w):
@@ -106,30 +107,63 @@ def track_plain(img_prev, img_next, uv_prev, valid_in, uv_guess=None, num_levels
     return _finish(uv, status, err, uv_prev, w)
 
 
-def _flat(levels: list[torch.Tensor]) -> torch.Tensor:
-    return torch.cat([lv.reshape(-1) for lv in levels]).contiguous()
+def template_staged(img, uv, half_win):
+    """A level's template and Scharr gradients the way K4 forms them, for
+    the tests: the (p+3)^2 integer neighbourhood of ``img`` [H, W] around
+    each centre of ``uv`` [N, 2], Scharr at the (p+1)^2 integer positions
+    (patch row r is image row clamp(v0 + r), its neighbours rows
+    clamp(clamp(v0 + r) +- 1)), then every window pixel interpolated with
+    the centre's one fractional offset. -> (t, gx, gy), each [N, (2h+1)^2]
+    in ``patch_offsets`` order; equal, up to rounding, to
+    ``bilinear_sample`` of the image and of its ``scharr_gradients``."""
+    h, w = img.shape
+    p = 2 * half_win + 1
+    n = uv.shape[0]
+    fu, fv = torch.floor(uv[:, 0]), torch.floor(uv[:, 1])
+    au, av = (uv[:, 0] - fu)[:, None, None], (uv[:, 1] - fv)[:, None, None]
+    u0 = fu.to(torch.int64) - half_win
+    v0 = fv.to(torch.int64) - half_win
+    v0c = v0.clamp(0, h - 1)
+    ar = lambda m: torch.arange(m, device=img.device)
+    # neighbourhood nb[n, q, c] = img[clamp(v0c - 1 + q), (u0 - 1 + c) mod w]
+    rows = (v0c[:, None] - 1 + ar(p + 3)).clamp(0, h - 1)
+    cols = torch.remainder(u0[:, None] - 1 + ar(p + 3), w)
+    nb = img[rows[:, :, None], cols[:, None, :]]
+    big_r = (v0c[:, None] + ar(p + 1)).clamp(max=h - 1)  # image row of patch row r
+    pick = lambda rr: nb.gather(1, (rr - v0c[:, None] + 1)[:, :, None].expand(n, p + 1, p + 3))
+    r_m, r_u, r_d = pick(big_r), pick((big_r - 1).clamp(min=0)), pick((big_r + 1).clamp(max=h - 1))
+    s0, s1, s2 = 3.0 / 16.0, 10.0 / 16.0, 3.0 / 16.0
+    sv = s0 * r_u + s1 * r_m + s2 * r_d
+    sh = lambda x: s0 * x[..., 0:p + 1] + s1 * x[..., 1:p + 2] + s2 * x[..., 2:p + 3]
+    integer = (r_m[..., 1:p + 2], 0.5 * (sv[..., 2:] - sv[..., :-2]), 0.5 * (sh(r_d) - sh(r_u)))
+    # window row k interpolates patch rows clamp(v0 + k) - v0c and the next
+    top = ((v0[:, None] + ar(p)).clamp(0, h - 1) - v0c[:, None])[:, :, None].expand(n, p, p + 1)
+    out = []
+    for x in integer:
+        a, b = x.gather(1, top), x.gather(1, top + 1)
+        upper = a[..., :p] * (1.0 - au) + a[..., 1:] * au
+        lower = b[..., :p] * (1.0 - au) + b[..., 1:] * au
+        out.append((upper * (1.0 - av) + lower * av).reshape(n, p * p))
+    return tuple(out)
 
 
 @dataclasses.dataclass
 class Prepared:
-    """K4's inputs on the card: the flattened pyramids of both images and
-    the previous image's Scharr gradients, their level table, and the
-    feature arrays."""
+    """K4's inputs on the card: both images' pyramids in one flat buffer
+    (level l of the previous image, then level l of the next, for each
+    level), its level table, and the feature arrays."""
 
-    buf_i: torch.Tensor
-    buf_j: torch.Tensor
-    buf_gx: torch.Tensor
-    buf_gy: torch.Tensor
+    pyr: torch.Tensor
     meta: _LevelMeta
     uv_prev: torch.Tensor
     uv_guess: torch.Tensor
     valid: torch.Tensor
-    width: int
 
 
 def prepare(img_prev, img_next, uv_prev, valid_in, uv_guess=None, num_levels=3) -> Prepared:
-    """Everything ``track`` does on the card before K4's launch: checks,
-    pyramids, gradients and the flat level buffers."""
+    """Everything ``track`` does on the card before K4's launch: checks and
+    both pyramids, built in one batched pass over the [2, H, W] stack
+    straight into the flat buffer."""
     dev = img_prev.device
     n = uv_prev.shape[0]
     if img_prev.dim() != 2 or img_next.shape != img_prev.shape:
@@ -141,46 +175,51 @@ def prepare(img_prev, img_next, uv_prev, valid_in, uv_guess=None, num_levels=3) 
     for name, t in dict(img_next=img_next, uv_prev=uv_prev, valid_in=valid_in).items():
         if t.device != dev:
             raise ValueError(f"lk_pyr: {name} on {t.device}, expected {dev}")
-    img_prev = img_prev.to(torch.float32).contiguous()
-    img_next = img_next.to(torch.float32).contiguous()
-    pyr_i = build_pyramid(img_prev, num_levels)
-    pyr_j = build_pyramid(img_next, num_levels)
-    grads = [scharr_gradients(im) for im in pyr_i]
     meta = _LevelMeta()
     meta.n_levels = num_levels + 1
+    h, w = img_prev.shape
     off = 0
-    for lvl, im in enumerate(pyr_i):
-        meta.h[lvl], meta.w[lvl], meta.offset[lvl] = im.shape[0], im.shape[1], off
-        off += im.numel()
+    for lvl in range(num_levels + 1):
+        meta.h[lvl], meta.w[lvl], meta.offset[lvl] = h, w, off
+        off += 2 * h * w
+        h, w = (h + 1) // 2, (w + 1) // 2
+    pyr = torch.empty(off, dtype=torch.float32, device=dev)
+    levels = [pyr[meta.offset[lvl]:meta.offset[lvl] + 2 * meta.h[lvl] * meta.w[lvl]]
+              .view(2, meta.h[lvl], meta.w[lvl]) for lvl in range(num_levels + 1)]
+    torch.stack([img_prev, img_next], out=levels[0])
+    for lvl in range(num_levels):
+        pyr_down(levels[lvl], out=levels[lvl + 1])
     return Prepared(
-        buf_i=_flat(pyr_i), buf_j=_flat(pyr_j), buf_gx=_flat([g[0] for g in grads]),
-        buf_gy=_flat([g[1] for g in grads]), meta=meta,
-        uv_prev=uv_prev.to(torch.float32).contiguous(),
+        pyr=pyr, meta=meta, uv_prev=uv_prev.to(torch.float32).contiguous(),
         uv_guess=(uv_prev if uv_guess is None else uv_guess).to(torch.float32).contiguous(),
-        valid=valid_in.to(torch.bool).contiguous(), width=img_prev.shape[1],
+        valid=valid_in.to(torch.bool).contiguous(),
     )
 
 
-def launch(prep: Prepared, half_win=10, iters=30, eps=0.01):
-    """K4 alone on prepared buffers -> (uv, status, err) as ``track``."""
+def launch(prep: Prepared, half_win=10, iters=30, eps=0.01, work: torch.Tensor | None = None):
+    """K4 alone on prepared buffers -> (uv, status, err) as ``track``.
+    ``work``, an [N, 3] int32 tensor, receives each feature's Gauss-Newton
+    steps, templates formed and J patches staged, over all levels."""
     if not 1 <= half_win <= _MAX_HALF:
         raise ValueError(f"lk_pyr: half_win {half_win} out of range")
     dev = prep.uv_prev.device
     n = prep.uv_prev.shape[0]
+    if work is not None and (work.shape != (n, 3) or work.dtype != torch.int32
+                             or work.device != dev or not work.is_contiguous()):
+        raise ValueError("lk_pyr: work must be a contiguous [N, 3] int32 tensor on the card")
     uv_out = torch.empty(n, 2, dtype=torch.float32, device=dev)
     status = torch.empty(n, dtype=torch.bool, device=dev)
     err = torch.empty(n, dtype=torch.float32, device=dev)
     lib = cuda_build.load("lk_pyr", _SIGS)
     ptr = cuda_build.ptr
     rc = lib.lk_pyr(
-        ptr(prep.buf_i), ptr(prep.buf_j), ptr(prep.buf_gx), ptr(prep.buf_gy), ptr(prep.uv_prev),
-        ptr(prep.uv_guess), ptr(prep.valid), ptr(uv_out), ptr(status), ptr(err),
-        ctypes.byref(prep.meta), n, half_win, iters, float(eps * eps), MIN_EIG_THRESHOLD,
-        cuda_build.stream_ptr(dev),
+        ptr(prep.pyr), ptr(prep.uv_prev), ptr(prep.uv_guess), ptr(prep.valid), ptr(uv_out),
+        ptr(status), ptr(err), None if work is None else ptr(work), ctypes.byref(prep.meta), n,
+        half_win, iters, float(eps * eps), MIN_EIG_THRESHOLD, cuda_build.stream_ptr(dev),
     )
     cuda_build.check(rc, "lk_pyr launch")
     LAUNCHES["lk_pyr"] += 1
-    return _finish(uv_out, status, err, prep.uv_prev, prep.width)
+    return uv_out, status, err
 
 
 def track(img_prev, img_next, uv_prev, valid_in, uv_guess=None, num_levels=3, half_win=10,

@@ -14,21 +14,31 @@ import torch
 _K5 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
 
 
+def _taps(shifted) -> torch.Tensor:
+    """sum_i K5[i] * shifted(i), added left to right."""
+    acc = _K5[0] * shifted(0)
+    for i in range(1, 5):
+        acc += _K5[i] * shifted(i)
+    return acc
+
+
 def _blur_h(img: torch.Tensor) -> torch.Tensor:
-    pad = torch.cat([img[:, -2:], img, img[:, :2]], 1)
-    w = img.shape[1]
-    return sum(_K5[i] * pad[:, i:i + w] for i in range(5))
+    pad = torch.cat([img[..., :, -2:], img, img[..., :, :2]], -1)
+    w = img.shape[-1]
+    return _taps(lambda i: pad[..., :, i:i + w])
 
 
 def _blur_v(img: torch.Tensor) -> torch.Tensor:
-    pad = torch.cat([img[:1], img[:1], img, img[-1:], img[-1:]], 0)
-    h = img.shape[0]
-    return sum(_K5[i] * pad[i:i + h] for i in range(5))
+    pad = torch.cat([img[..., :1, :], img[..., :1, :], img, img[..., -1:, :], img[..., -1:, :]], -2)
+    h = img.shape[-2]
+    return _taps(lambda i: pad[..., i:i + h, :])
 
 
-def pyr_down(img: torch.Tensor) -> torch.Tensor:
-    """One pyramid level: blur then decimate by 2."""
-    return _blur_v(_blur_h(img))[::2, ::2].contiguous()
+def pyr_down(img: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """One pyramid level of [..., H, W]: blur then decimate by 2, into
+    ``out`` when given."""
+    down = _blur_v(_blur_h(img))[..., ::2, ::2]
+    return down.contiguous() if out is None else out.copy_(down)
 
 
 def build_pyramid(img: torch.Tensor, num_levels: int) -> list[torch.Tensor]:
