@@ -20,12 +20,15 @@ Phases (any failure raises and the script exits non-zero):
    K2 (one cluster of 16 CTAs) is also timed on a sliding-window problem
    (each landmark seen by 3 consecutive keyframes of 10); K4 is timed
    alone on prepared buffers and with its wrapper, and its bound counts
-   the Gauss-Newton steps and templates the kernel reports;
+   the Gauss-Newton steps and templates the kernel reports; K1 also over
+   a batch of B = 4 problems in one launch (three that succeed, one with
+   too few inliers), each equal bit for bit to its own B = 1 launch;
 4. lk_matmul: the matmul-gather LK on the card against the same call on
    the CPU;
 5. the VO slice: render the 40-frame 960x480 textured sequence (seed 11)
    with ``vio360_tpu_torch.synthetic``, run the port's CLI on it with
-   ``--vo`` (per-feature LK, K4) with every launch counter at 0, and
+   ``--vo`` (per-feature LK, K4; loop closure and pose graph off, as in
+   the JAX run that sets its bound) with every launch counter at 0, and
    check that it initializes, makes >= 3 keyframes, launches every kernel
    of the path, and stays within the sim3 ATE bound set by the JAX
    package on the same sequence;
@@ -33,7 +36,20 @@ Phases (any failure raises and the script exits non-zero):
    at ``--lk-backend matmul`` (K5), counters at 0 again; it must
    initialize, initialize the IMU, make >= 3 keyframes, launch K5, K1
    and K2, and stay within the SE(3) ATE and scale-error bounds set by
-   the JAX package (``tools/jax_vio_reference.py``).
+   the JAX package (``tools/jax_vio_reference.py``);
+7. the loop slice: render the 300-frame 960x480 three-lap revisit
+   sequence (seed 41, pixel noise 0.05) and run the CLI on it with
+   ``--vo`` at the defaults (loop closure and pose graph on); it must
+   record eviction edges with covariance weights, close a verified loop,
+   launch K1 with B = 4, run the Sim(3) graph at export and stay within
+   the sim3 ATE bound set by the JAX package; then once with
+   ``--no-loop`` for information;
+8. relocalization: a 90-frame 480x240 sequence (seed 51) blacked out
+   for frames 45-54, through the CLI with ``--vo`` and
+   configs/synthetic_480.yaml; it must lose tracking in the blackout,
+   relocalize within 2 frames of the JAX package, track on every frame
+   after that and stay within the JAX bound on the ATE after it
+   (``tools/jax_loop_reference.py`` gives the JAX numbers of 7 and 8).
 
 The last lines of standard output are ``nvidia-smi``'s name and power
 limit, the kernels record and ``{"ok": true, "device": {...}}``.
@@ -68,6 +84,19 @@ JAX_VIO_ATE_SE3 = 0.014014553732509413
 JAX_VIO_SCALE_ERR = 0.01715706788553728
 VIO_ATE_BOUND = max(2.0 * JAX_VIO_ATE_SE3, JAX_VIO_ATE_SE3 + 0.02)
 VIO_SCALE_BOUND = max(2.0 * JAX_VIO_SCALE_ERR, JAX_VIO_SCALE_ERR + 0.02)
+
+# The JAX package (CPU) on the loop and relocalization sequences, VO, loop
+# closure and pose graph on (tools/jax_loop_reference.py). Loop: 300
+# frames 960x480 at the defaults, sim3 ATE with loops and without (for
+# information). Relocalization: 90 frames 480x240 with
+# configs/synthetic_480.yaml, the first relocalized frame and the sim3
+# ATE from two frames after it on. Bounds: max(2x, +0.02).
+JAX_LOOP_ATE = 0.027890215461344164
+JAX_NOLOOP_ATE = 0.011975448197291357
+JAX_RELOC_FRAME = 55
+JAX_RELOC_ATE = 0.017858938024951223
+LOOP_ATE_BOUND = max(2.0 * JAX_LOOP_ATE, JAX_LOOP_ATE + 0.02)
+RELOC_ATE_BOUND = max(2.0 * JAX_RELOC_ATE, JAX_RELOC_ATE + 0.02)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores (every kernel here computes in f32).
@@ -216,16 +245,17 @@ def lk_bound(n: int, num_levels: int, work, half: int = 10, h: int = 480, w: int
     return bound(2 * px * 4 + n * 30, flops)
 
 
-def pnp_problem(dev, m: int = 1024) -> tuple:
+def pnp_problem(dev, m: int = 1024, seed: int = 9, n_active: int | None = None) -> tuple:
     """``pnp_solve``'s arguments for K1's main-path shape: M landmarks in
     front of the camera, 0.5 px noise, 60 gross outliers, 90% active and
-    5% marginalized slots, from seed 9."""
+    5% marginalized slots, from ``seed`` (9 on the main path); with
+    ``n_active`` only the first that many active slots stay active."""
     import numpy as np
     import torch
 
     from vio360_tpu_torch.geometry import camera as cam, lie
 
-    rng = np.random.default_rng(9)
+    rng = np.random.default_rng(seed)
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     pts = t(rng.uniform(-5, 5, (m, 3)) + np.array([0, 0, 7.0]))
     r_true = lie.so3_exp(t([0.03, -0.02, 0.01]))
@@ -237,6 +267,8 @@ def pnp_problem(dev, m: int = 1024) -> tuple:
     obs[out_idx] += t(rng.uniform(30, 60, (60, 2)))
     active = torch.as_tensor(rng.random(m) < 0.9, device=dev)
     marg = torch.as_tensor(rng.random(m) < 0.05, device=dev)
+    if n_active is not None:
+        active &= torch.cumsum(active.int(), 0) <= n_active
     return (torch.eye(3, device=dev), torch.zeros(3, device=dev), pts, obs, active, marg, 1e-4,
             r_cb, t_cb, 960, 480, 1.0, 1.0, 5.991, 4, 50)
 
@@ -356,8 +388,8 @@ def phase_kernels(dev):
     # projection, Jacobian, normal equations) per LM iteration, plus the
     # first linearization and the chi2 pass of each of the 4 rounds
     out["lm_pnp"] = dict(max_abs_err=max(dt_, dr_), ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms,
-                         library_ms=None,
-                         **bound(m * (12 + 8 + 8) + m * 4 + 64, (k1_iters + 2 * 4) * m * 300))
+                         library_ms=None, **pnp_bound(m, [k1_iters]))
+    out["lm_pnp"]["batched"] = phase_pnp_batched(dev, m, k1a)
 
     # ---- K2 (K = 10 and 2) and K3 (K = 10) at M = 2048 ----
     def ba_flops(args, iters):
@@ -433,6 +465,56 @@ def phase_kernels(dev):
     return out
 
 
+def pnp_bound(m: int, iters: list) -> dict:
+    """K1's bound for problems of M landmarks that took ``iters`` LM
+    iterations each: bytes = points, observations and masks in, pose and
+    outlier flags out, per problem; operations = one pass over the M
+    landmarks (~300 flops each: transform, projection, Jacobian, normal
+    equations) per LM iteration, plus the first linearization and the
+    chi2 pass of each of the 4 rounds."""
+    return bound(len(iters) * (m * (12 + 8 + 8) + m * 4 + 64),
+                 sum(it + 2 * 4 for it in iters) * m * 300)
+
+
+def phase_pnp_batched(dev, m: int, single9) -> dict:
+    """K1 over B = 4 problems in one launch (the loop path's verify_top_k):
+    pnp_problem at seeds 9-11, and seed 12 with 8 active slots (too few
+    inliers: fails), each held against the plain version and bit for bit
+    against a B = 1 launch on its own inputs; the seed-9 problem also
+    against the main-path K1 launch above."""
+    import torch
+
+    from vio360_tpu_torch.solver import ba_cuda
+
+    probs = [pnp_problem(dev, m, seed) for seed in (9, 10, 11)] + [pnp_problem(dev, m, 12, n_active=8)]
+    bargs = (*(torch.stack([p[i] for p in probs]) for i in range(6)), *probs[0][6:])
+    kb = ba_cuda._pnp_launch(*bargs)
+    pb = ba_cuda._pnp_plain(*bargs)
+    singles = [ba_cuda._pnp_launch(*p) for p in probs]
+    torch.cuda.synchronize()
+    for i, one in enumerate(singles):
+        check(all(torch.equal(kb[j][i], one[j]) for j in range(7)),
+              f"K1 batched: problem {i} differs from its B = 1 launch")
+    check(all(torch.equal(kb[j][0], single9[j]) for j in range(7)),
+          "K1 batched: problem 0 differs from the main-path launch")
+    dt_ = float((kb[1] - pb[1]).abs().max())
+    dr_ = float((kb[0] - pb[0]).abs().max())
+    inl_k, inl_p = kb[4].tolist(), pb[4].tolist()
+    log(f"[K1 lm_pnp B=4 M={m}] each problem equal to its B = 1 launch; |dt| {dt_:.3e} |dR| "
+        f"{dr_:.3e}; inliers {inl_k} vs plain {inl_p}; LM iterations {kb[6].tolist()}")
+    check(dt_ < 5e-3 and dr_ < 5e-4 and all(abs(a - b) <= 3 for a, b in zip(inl_k, inl_p)),
+          "K1 batched disagrees with its plain version")
+    check(min(inl_k[:3]) >= 25 and inl_k[3] < 10, "K1 batched: expected 3 successes and 1 failure")
+    k_ms = device_ms(lambda: ba_cuda.pnp_solve(*bargs), "pnp_kernel", 20)
+    w_ms = timed_ms(lambda: ba_cuda.pnp_solve(*bargs), 20)
+    p_ms = timed_ms(lambda: ba_cuda._pnp_plain(*bargs), 2)
+    rec = dict(b=4, max_abs_err=max(dt_, dr_), ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms,
+               **pnp_bound(m, kb[6].tolist()))
+    log(f"[K1 lm_pnp B=4 M={m}] kernel {k_ms:.4f} ms, wrapper {w_ms:.4f} ms vs plain {p_ms:.3f} ms; "
+        f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+    return rec
+
+
 def phase_gather(dev, img0, img1, uv, valid):
     """K5 against its plain version at every (level, g) the matmul LK uses
     on 960x480 with N = 1024: g = p+3 = 24 (template), 34 (search at the
@@ -505,12 +587,13 @@ def _counters():
     from vio360_tpu_torch.ops import gather_cuda, lk_cuda
     from vio360_tpu_torch.solver import ba_cuda
 
-    return (ba_cuda.LAUNCHES, lk_cuda.LAUNCHES, gather_cuda.LAUNCHES)
+    return (ba_cuda.LAUNCHES, lk_cuda.LAUNCHES, gather_cuda.LAUNCHES, ba_cuda.PNP_BATCHES)
 
 
 def _run_cli(seq: Path, extra: list, dev):
     """The port's CLI on ``seq`` with every launch counter at 0 ->
-    (launches, metrics rows, wall seconds)."""
+    (launches, metrics rows, wall seconds); ``launches`` also holds K1's
+    launches by batch size under ("lm_pnp", B)."""
     import torch
 
     from vio360_tpu_torch import cli
@@ -520,12 +603,13 @@ def _run_cli(seq: Path, extra: list, dev):
         c.clear()
     torch.cuda.synchronize()
     t0 = time.time()
-    rc = cli.main([str(seq), *extra, "--no-loop", "--no-pose-graph", "--output",
-                   str(seq / "traj.tum"), "--metrics", str(seq / "metrics.jsonl"), "--device",
-                   str(dev), "--quiet"])
+    rc = cli.main([str(seq), *extra, "--output", str(seq / "traj.tum"), "--metrics",
+                   str(seq / "metrics.jsonl"), "--device", str(dev), "--quiet"])
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {k: v for c in _counters() for k, v in c.items()}
+    *kernels, batches = _counters()
+    launches = {k: v for c in kernels for k, v in c.items()}
+    launches.update({("lm_pnp", b): n for b, n in batches.items()})
     check(rc == 0, f"CLI exited {rc}")
     rows = [json.loads(line) for line in (seq / "metrics.jsonl").read_text().splitlines()]
     return launches, rows, wall
@@ -547,7 +631,7 @@ def phase_slice(dev, seq: Path):
     import numpy as np
 
     traj = seq / "traj.tum"
-    launches, rows, wall = _run_cli(seq, ["--vo"], dev)
+    launches, rows, wall = _run_cli(seq, ["--vo", "--no-loop", "--no-pose-graph"], dev)
     frames = [r for r in rows if "frame" in r]
     states = [r["state"] for r in frames]
     n_kf = sum(bool(r["keyframe"]) for r in frames)
@@ -572,7 +656,8 @@ def phase_vio(dev, seq: Path):
     import numpy as np
 
     traj = seq / "traj.tum"
-    launches, rows, wall = _run_cli(seq, ["--lk-backend", "matmul"], dev)
+    launches, rows, wall = _run_cli(seq, ["--lk-backend", "matmul", "--no-loop", "--no-pose-graph"],
+                                    dev)
     frames = [r for r in rows if "frame" in r]
     summary = next(r for r in rows if r.get("event") == "stage_summary")
     states = [r["state"] for r in frames]
@@ -602,6 +687,105 @@ def phase_vio(dev, seq: Path):
     return launches
 
 
+def _frames_ate(traj: Path, seq: Path, first: int) -> float:
+    """sim3 ATE of the trajectory's frames from ``first`` on (the repo's
+    evaluator on truncated copies of both files)."""
+    cut = seq / "cut"
+    cut.mkdir(exist_ok=True)
+    for src in (traj, seq / "groundtruth.tum"):
+        rows = src.read_text().splitlines()
+        (cut / src.name).write_text("\n".join(rows[first:]) + "\n")
+    return float(evaluate_ate(cut / traj.name, cut / "groundtruth.tum", "sim3")["ate_rmse_sim3"])
+
+
+def phase_loop(dev):
+    """The loop slice: the 300-frame three-lap revisit sequence through the
+    CLI as VO at the defaults (loop closure and pose graph on)."""
+    import numpy as np
+
+    from vio360_tpu_torch import synthetic
+
+    seq = ROOT / "build" / "smoke_loop41"
+    shutil.rmtree(seq, ignore_errors=True)
+    t0 = time.time()
+    synthetic.make_dataset(str(seq), frames=300, width=960, height=480, seed=41, texture=True,
+                           revisit=True, laps=3, pixel_noise=0.05, device=dev)
+    log(f"[loop] rendered 300 frames 960x480 (seed 41, textured, 3 laps, pixel noise 0.05) in "
+        f"{time.time() - t0:.1f}s")
+    traj = seq / "traj.tum"
+    launches, rows, wall = _run_cli(seq, ["--vo"], dev)
+    frames = [r for r in rows if "frame" in r]
+    states = [r["state"] for r in frames]
+    graph = next(r for r in rows if r.get("event") == "pose_graph")
+    summary = next(r for r in rows if r.get("event") == "stage_summary")
+    loops = [(r["frame"], r["loop_closed_to"]) for r in frames if "loop_closed_to" in r]
+    p_est = np.loadtxt(traj, ndmin=2)[:, 1:4]
+    ate = float(evaluate_ate(traj, seq / "groundtruth.tum", "sim3")["ate_rmse_sim3"])
+    b4 = launches.get(("lm_pnp", 4), 0)
+    log(f"[loop] init at frame {states.index('initialized') if 'initialized' in states else -1}, "
+        f"keyframes {sum(bool(r['keyframe']) for r in frames)}, verified loops {len(loops)} "
+        f"(first {loops[:3]}), pose graph {graph}, K1 launches with B = 4: {b4}")
+    log(f"[loop] sim3 ATE {ate:.6f} m (bound {LOOP_ATE_BOUND:.6f}, JAX {JAX_LOOP_ATE:.6f}), wall "
+        f"{1000 * wall / len(frames):.1f} ms/frame; stage means (ms): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sorted(summary.items()) if k not in ("event", "wall_time")))
+    log(f"[loop] launches {launches}")
+    check("initialized" in states, "the loop slice never initialized")
+    check(graph["edges"] > 0 and graph["nodes"] > 0, "no eviction edges recorded")
+    check(math.isfinite(graph["vis_w_t_median"]) and graph["vis_w_t_median"] > 0
+          and graph["vis_w_t_median"] != 20.0, "eviction edges without covariance weights")
+    check(len(loops) >= 1 and graph["loop_edges"] >= 1, "no verified loop closed")
+    check(graph["sim3_nodes"] > 0, "the Sim(3) pose graph did not run at export")
+    check(b4 > 0, "loop verification never launched K1 with B = 4")
+    for name in ("lk_pyr", "lm_pnp", "lm_ba_solve"):
+        check(launches.get(name, 0) > 0, f"kernel {name} was not launched by the loop path")
+    check(math.isfinite(ate) and ate <= LOOP_ATE_BOUND, f"ATE {ate} above bound {LOOP_ATE_BOUND}")
+    check(np.isfinite(p_est).all() and p_est.shape == (300, 3), "bad trajectory")
+    # for information (no gate): the same run without loop closure
+    _, _, wall_off = _run_cli(seq, ["--vo", "--no-loop"], dev)
+    ate_off = float(evaluate_ate(traj, seq / "groundtruth.tum", "sim3")["ate_rmse_sim3"])
+    log(f"[loop] without loop closure: sim3 ATE {ate_off:.6f} m (JAX {JAX_NOLOOP_ATE:.6f}), wall "
+        f"{1000 * wall_off / len(frames):.1f} ms/frame")
+    return launches
+
+
+def phase_reloc(dev):
+    """Relocalization: a 90-frame sequence blacked out for frames 45-54
+    through the CLI as VO with configs/synthetic_480.yaml (480x240: at
+    960x480 and the defaults the JAX package never relocalizes on it)."""
+    import numpy as np
+
+    from vio360_tpu_torch import synthetic
+
+    seq = ROOT / "build" / "smoke_reloc51"
+    shutil.rmtree(seq, ignore_errors=True)
+    synthetic.make_dataset(str(seq), frames=90, width=480, height=240, seed=51, texture=True,
+                           pixel_noise=0.02, blackout=(45, 55), device=dev)
+    traj = seq / "traj.tum"
+    launches, rows, wall = _run_cli(
+        seq, ["--vo", "--config", str(ROOT / "configs" / "synthetic_480.yaml")], dev)
+    frames = [r for r in rows if "frame" in r]
+    states = [r["state"] for r in frames]
+    summary = next(r for r in rows if r.get("event") == "stage_summary")
+    lost = [r["frame"] for r in frames if r["state"] == "tracking_lost"]
+    reloc = next((r for r in frames if r["state"] == "relocalized"), None)
+    f_rel = reloc["frame"] if reloc else -1
+    after = states[f_rel + 1:] if reloc else []
+    ate = _frames_ate(traj, seq, f_rel + 2) if reloc else math.inf
+    log(f"[reloc] lost frames {lost[:3]}..{lost[-3:]} ({len(lost)}), relocalized at frame {f_rel} "
+        f"(JAX {JAX_RELOC_FRAME}) against frame {reloc.get('reloc_to') if reloc else None}, "
+        f"{after.count('tracking')}/{len(after)} frames tracking after it; sim3 ATE after it "
+        f"{ate:.6f} m (bound {RELOC_ATE_BOUND:.6f}, JAX {JAX_RELOC_ATE:.6f}), wall "
+        f"{1000 * wall / len(frames):.1f} ms/frame, reloc stage {summary.get('reloc', 0.0):.2f} ms")
+    log(f"[reloc] launches {launches}")
+    check(bool(lost) and 45 <= min(lost) < 55, "the blackout did not lose tracking")
+    check(reloc is not None and abs(f_rel - JAX_RELOC_FRAME) <= 2,
+          f"relocalized at frame {f_rel}, JAX at {JAX_RELOC_FRAME}")
+    check(all(s == "tracking" for s in after), "tracking did not hold after the relocalization")
+    check(math.isfinite(ate) and ate <= RELOC_ATE_BOUND, f"ATE {ate} above bound {RELOC_ATE_BOUND}")
+    check(launches.get(("lm_pnp", 4), 0) > 0, "relocalization never launched K1 with B = 4")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -626,6 +810,8 @@ def main() -> int:
     seq = render_sequence(dev)
     vo = phase_slice(dev, seq)
     vio = phase_vio(dev, seq)
+    loop = phase_loop(dev)
+    reloc = phase_reloc(dev)
     sources = {
         "lk_pyr": ("vio360_tpu_torch/csrc/lk_pyr.cu", "vio360_tpu/ops/lk_pallas.py:64"),
         "lm_pnp": ("vio360_tpu_torch/csrc/lm_solve.cu", "vio360_tpu/solver/ba_pallas.py:777"),
@@ -635,7 +821,7 @@ def main() -> int:
     }
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": int(vo.get(k, 0) + vio.get(k, 0)), **rec[k],
+         "launches": int(sum(run.get(k, 0) for run in (vo, vio, loop, reloc))), **rec[k],
          **({"note": "tests only: on no main path"} if k == "lm_ba_iteration" else {})}
         for k, (src, rep) in sources.items()
     ]

@@ -7,11 +7,13 @@ medians of tracking and keyframe frames, the stage means, and for the
 profiled window its wall time, the device's busy time (union of kernel
 and copy intervals), the launch count and the device time by kernel,
 the LM iteration count of each window-BA launch (K2) in the window, the
-landmarks and LM iterations of each PnP launch (K1) there, and the
-Gauss-Newton steps of each per-feature LK launch (K4) there.
+landmarks, batch size and LM iterations of each PnP launch (K1) there,
+the Gauss-Newton steps of each per-feature LK launch (K4) there, and the
+host operators that took the most host time there. Loop closure and the
+pose graph are off unless ``--loop`` is given (the defaults).
 The last line of standard output is a JSON summary.
 
-    python tools/profile_torch_slice.py DATASET [--lk-backend matmul] [--vo] \\
+    python tools/profile_torch_slice.py DATASET [--lk-backend matmul] [--vo] [--loop] \\
         [--from 20] [--to 40] [--device cuda:0]
 
 With ``--render DIR`` the 40-frame 960x480 textured sequence of seed 11
@@ -84,6 +86,7 @@ def main(argv=None) -> int:
     p.add_argument("--from", dest="start", type=int, default=20)
     p.add_argument("--to", dest="stop", type=int, default=40)
     p.add_argument("--device", default="cuda:0")
+    p.add_argument("--loop", action="store_true", help="loop closure and pose graph on")
     args = p.parse_args(argv)
 
     import torch
@@ -108,9 +111,11 @@ def main(argv=None) -> int:
         synthetic.make_dataset(args.dataset_dir, frames=40, width=960, height=480, seed=11,
                                texture=True, device=args.device)
     cfg = cfgmod.VioConfig()
-    cfg = dataclasses.replace(
-        cfg, loop=cfgmod.LoopConfig(enabled=False), pose_graph=cfgmod.PoseGraphConfig(enabled=False),
-        optical_flow=dataclasses.replace(cfg.optical_flow, backend=args.lk_backend))
+    cfg = dataclasses.replace(cfg, optical_flow=dataclasses.replace(cfg.optical_flow,
+                                                                     backend=args.lk_backend))
+    if not args.loop:
+        cfg = dataclasses.replace(cfg, loop=cfgmod.LoopConfig(enabled=False),
+                                  pose_graph=cfgmod.PoseGraphConfig(enabled=False))
     data = VioDataset(args.dataset_dir, image_size=(cfg.camera.width, cfg.camera.height))
     n = min(len(data), args.stop)
 
@@ -131,7 +136,7 @@ def main(argv=None) -> int:
 
     def recording_pnp(*a, **kw):
         out = pnp_launch(*a, **kw)
-        k1_iters.append((_FRAME[0], a[2].shape[0], out[6]))
+        k1_iters.append((_FRAME[0], a[2].shape[-2], out[6].reshape(-1)))
         return out
 
     ba_cuda.ba_solve, ba_cuda._pnp_launch, lk_cuda.launch = recording_solve, recording_pnp, recording_lk
@@ -163,12 +168,17 @@ def main(argv=None) -> int:
           f"({busy / (wall * 1e3):.3f}), {len(events)} device events")
     for name, (ms, cnt) in top:
         print(f"  {ms:9.2f} ms  x{cnt:6d}  {name[:90]}")
+    host = sorted(ctx.key_averages(), key=lambda a: -a.self_cpu_time_total)[:12]
+    print("host time by operator (self):")
+    for a in host:
+        print(f"  {a.self_cpu_time_total / 1e3:9.2f} ms  x{a.count:6d}  {a.key[:90]}")
     iters = [int(it) for fr, it in k2_iters if fr >= args.start]
     print(f"K2 (window BA) launches in frames {args.start}-{n - 1}: {len(iters)}, LM iterations "
           f"{iters}")
-    pnp = [(m, int(it)) for fr, m, it in k1_iters if fr >= args.start]
-    print(f"K1 (PnP) launches in frames {args.start}-{n - 1}: {len(pnp)}, landmarks "
-          f"{sorted({m for m, _ in pnp})}, LM iterations over the rounds {[it for _, it in pnp]}")
+    pnp = [(m, it.tolist()) for fr, m, it in k1_iters if fr >= args.start]
+    print(f"K1 (PnP) launches in frames {args.start}-{n - 1}: {len(pnp)} (B = 4: "
+          f"{sum(len(it) == 4 for _, it in pnp)}), landmarks {sorted({m for m, _ in pnp})}, LM "
+          f"iterations over the rounds per problem {[it for _, it in pnp]}")
     k4 = [w[:, 0].double() for fr, w in k4_work if fr >= args.start]
     k4_sum = [int(w.sum()) for w in k4]
     print(f"K4 (per-feature LK) launches in frames {args.start}-{n - 1}: {len(k4)}, Gauss-Newton "

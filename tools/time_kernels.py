@@ -15,12 +15,14 @@ K4 on buffers ``lk_cuda.prepare`` made once) and ``chip_smoke.timed_ms``
 (median CUDA-event time around ``pnp_solve`` / ``lk_cuda.track``, host
 work of the wrapper included). To compare two checkouts, give them in
 mirrored order (A B B A) so drift between runs shows. Prints one JSON
-line per root.
+line per root; ``pnp_sha`` is a digest of K1's outputs on the PnP
+problem, so equal digests mean the checkouts' K1 return the same bits.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -44,7 +46,9 @@ def _child(root: str, reps: int) -> None:
     dev = torch.device("cuda:0")
     args = chip_smoke.pnp_problem(dev)
     out = ba_cuda.pnp_solve(*args)
+    digest = hashlib.sha256(b"".join(x.detach().cpu().numpy().tobytes() for x in out)).hexdigest()
     rec = {"root": root, "package": str(Path(ba_cuda.__file__).resolve().parent.parent),
+           "pnp_sha": digest[:16],
            "pnp_kernel_ms": chip_smoke.device_ms(lambda: ba_cuda.pnp_solve(*args), "pnp_kernel", reps),
            "pnp_wrapper_ms": chip_smoke.timed_ms(lambda: ba_cuda.pnp_solve(*args), reps),
            "pnp_inliers": int(out[4])}

@@ -2,18 +2,19 @@
 
 Counterpart of ``vio360_tpu/cli.py`` for the ported slices::
 
-    python -m vio360_tpu_torch DATASET --no-loop --no-pose-graph \\
+    python -m vio360_tpu_torch DATASET [--no-loop] [--no-pose-graph] \\
         [--lk-backend matmul] [--vo] [--config cfg.yaml] [--output traj.tum] \\
         [--metrics m.jsonl] [--device cuda:0|cpu]
 
-A dataset with IMU rows runs VIO unless ``--vo`` is given. ``--device``
-defaults to the card; without one the run stops with an error unless
-``--device cpu`` is given. Anything that needs a part of the system not
-ported yet exits with code 2 and names it: loop closure or the pose
-graph left on (the YAML loader cannot turn them off, hence ``--no-loop``
-/ ``--no-pose-graph``), and the flags ``--mesh``,
-``--frames-per-dispatch`` > 1, ``--checkpoint``, ``--resume``,
-``--step``, ``--x64``, ``--profile`` and ``--viz-dir``. The frame loop
+A dataset with IMU rows runs VIO unless ``--vo`` is given. Loop closure
+and the pose graph are on, as in ``VioConfig()``; ``--no-loop`` /
+``--no-pose-graph`` turn them off (the YAML loader reads no keys for
+them). ``--device`` defaults to the card; without one the run stops with
+an error unless ``--device cpu`` is given. Anything that needs a part of
+the system not ported yet exits with code 2 and names it: the flags
+``--mesh``, ``--frames-per-dispatch`` > 1, ``--checkpoint``,
+``--resume``, ``--step``, ``--x64``, ``--profile`` and ``--viz-dir``.
+The frame loop
 is always sequential, so ``--no-pipelined`` is accepted and changes
 nothing; the megastep / pipelined settings are host-loop strategies the
 JAX package proves equal to the sequential loop (tests/test_megastep.py,
@@ -119,8 +120,7 @@ def main(argv: list[str] | None = None) -> int:
             cfg.solver, image_transport=args.image_transport))
     missing = unported_features(cfg)
     if missing:
-        hint = " (pass --no-loop / --no-pose-graph)"
-        return _refuse(", ".join(missing) + hint)
+        return _refuse(", ".join(missing))
 
     # The Python decode path (numpy / PIL): the optional native prefetch
     # decoder (io/native_loader.py) is not part of this slice.
@@ -154,16 +154,22 @@ def main(argv: list[str] | None = None) -> int:
             log.info("frame %4d  %-13s tracked=%4d inliers=%4d%s", res.frame_id, res.state,
                      res.n_tracked, res.n_pnp_inliers, "  [KF]" if res.is_keyframe else "")
     wall = time.time() - t0
+    ts, rs, ps = est.export_trajectory()  # runs the pose-graph solve
+    n_loop = sum(e.kind == "loop" for e in est.pg_edges)
+    vis_w = [float(e.w_sqrt[0]) for e in est.pg_edges if e.kind == "vis"]
+    metrics.write(event="pose_graph", nodes=len(est.pg_nodes), edges=len(est.pg_edges),
+                  loop_edges=n_loop, sim3_nodes=len(est.kf_scale_log),
+                  vis_w_t_median=float(np.median(vis_w)) if vis_w else float("nan"))
     stage_summary = est.timers.summary()
     for stage, s in sorted(stage_summary.items(), key=lambda kv: -kv[1]["total_s"]):
         log.info("stage %-14s %6.1f ms/call x%-4d (%.2fs total)", stage, s["mean_ms"], s["count"],
                  s["total_s"])
     metrics.write(event="stage_summary", **{k: v["mean_ms"] for k, v in stage_summary.items()})
     metrics.close()
-    ts, rs, ps = est.export_trajectory()
     tio.write_tum(args.output, ts, rs, ps)
-    log.info("done: %d frames in %.1fs (%.2f fps), %d keyframes, %d landmarks -> %s", len(ts),
-             wall, len(ts) / max(wall, 1e-9), n_kf, int(est.win.lm_alive.sum()), args.output)
+    log.info("done: %d frames in %.1fs (%.2f fps), %d keyframes, %d landmarks, %d pose-graph "
+             "edges (%d loop) -> %s", len(ts), wall, len(ts) / max(wall, 1e-9), n_kf,
+             int(est.win.lm_alive.sum()), len(est.pg_edges), n_loop, args.output)
     return 0
 
 

@@ -3,9 +3,7 @@
 The port's own copy of ``vio360_tpu/config.py`` (which is free of JAX,
 but the port imports nothing of the JAX package), trimmed to what the
 port reads. Every field it keeps has the reference's name and default,
-so a configuration carries over field by field; the loop-closure and
-pose-graph sections keep only their ``enabled`` switch until those parts
-are ported.
+so a configuration carries over field by field.
 """
 
 from __future__ import annotations
@@ -94,12 +92,65 @@ class WindowConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PoseGraphConfig:
+    """Keyframe pose graph over evicted-window constraints
+    (solver/pose_graph.py). Edge weights are diagonal sqrt-information;
+    with ``cov_weighted`` they are derived per edge (solver/marginals.py),
+    else the ``*_weight_*`` constants below are used."""
     enabled: bool = True
+    cov_weighted: bool = True
+    # covariance floors (m, rad): keep derived weights finite
+    min_sigma_t: float = 1e-3
+    min_sigma_r: float = 5e-4
+    # velocity-estimate uncertainty entering IMU edges through v0 dt (m/s)
+    imu_vel_sigma: float = 0.05
+    # fallback sqrt-info for (translation m, rotation rad) components
+    vis_weight_t: float = 20.0
+    vis_weight_r: float = 100.0
+    skip_weight_t: float = 10.0
+    skip_weight_r: float = 50.0
+    imu_weight_t: float = 4.0
+    imu_weight_r: float = 40.0
+    max_iterations: int = 50
+    # Sim(3) mode (monocular VO graphs with loop edges): per-edge sigma of
+    # the scale residual; loop edges leave scale nearly free
+    sim3_odom_scale_sigma: float = 0.05
+    sim3_loop_scale_sigma: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)
 class LoopConfig:
+    """Appearance-based loop closure + relocalization (loop/closure.py)."""
     enabled: bool = True
+    db_capacity: int = 256  # keyframe place database (ring buffer)
+    # ring descriptor: latitude bands x longitude bins, dividing H and W
+    desc_bands: int = 16
+    desc_bins: int = 64
+    patch_size: int = 8  # NCC patch side (pixels, at the coarse level)
+    patch_pyr_levels: int = 2  # pyramid levels before patch extraction
+    # retrieval gates on the verified candidate's correlation score
+    min_score: float = 0.20
+    reloc_min_score: float = 0.15
+    verify_top_k: int = 4  # candidates patch-matched + PnP-verified
+    # candidates younger than this many keyframes are not loops
+    exclude_recent_kf: int = 30
+    match_min_ncc: float = 0.60
+    match_min_margin: float = 0.02
+    min_matches: int = 20
+    min_inliers: int = 25
+    # a "loop" implying a larger jump is a mismatch
+    max_rot_correction_deg: float = 30.0
+    max_trans_correction: float = 5.0
+    # live rigid corrections only above these floors, strongly verified
+    # and rate-limited
+    min_trans_correction: float = 0.15
+    min_rot_correction_deg: float = 5.0
+    apply_inlier_factor: float = 2.0  # x min_inliers to apply
+    correction_cooldown_kf: int = 10
+    # loop-edge sqrt-information
+    edge_weight_t: float = 400.0
+    edge_weight_r: float = 1500.0
+    # relocalization: consecutive tracking_lost frames before querying
+    reloc_after: int = 5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,4 +274,21 @@ def load_yaml(path: str) -> VioConfig:
     t_bc = (tuple(tuple(float(x) for x in row) for row in t_bc_raw) if t_bc_raw is not None
             else VioConfig.t_bc)
     return VioConfig(camera=cam, features=feats, tracking=tracking, init=init, imu=imu, viz=viz,
-                     t_bc=t_bc)
+                     t_bc=t_bc, loop=fit_loop_config(LoopConfig(), cam))
+
+
+def fit_loop_config(loop: LoopConfig, cam: CameraConfig) -> LoopConfig:
+    """Snap the ring-descriptor grid to divisors of the image size (the
+    pooled reshape in loop/descriptor.py needs exact tiling)."""
+
+    def best_divisor(n: int, target: int) -> int:
+        for d in range(target, 0, -1):
+            if n % d == 0:
+                return d
+        return 1
+
+    bands = best_divisor(cam.height, loop.desc_bands)
+    bins = best_divisor(cam.width, loop.desc_bins)
+    if bands == loop.desc_bands and bins == loop.desc_bins:
+        return loop
+    return dataclasses.replace(loop, desc_bands=bands, desc_bins=bins)

@@ -4,7 +4,9 @@ The JAX package's ``TrackState`` / ``WindowState`` / ``Preintegration``
 travel as dicts of numpy arrays (``to_numpy``, which reads any
 dataclass of arrays without importing JAX), so tests can start both
 implementations from one state; ``vio_state`` reads an estimator's
-inertial fields the same way.
+inertial fields the same way. A place database (``LoopDb``) travels the
+same way, and pose-graph edges (``PgEdge`` of either package) as dicts of
+their fields (``edge_fields``), from which each package builds its own.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from .estimator.window import WindowState
 from .frontend.tracker import TrackState
 from .imu.preintegration import Preintegration
+from .loop.closure import LoopDb
 
 
 def to_numpy(state) -> dict[str, np.ndarray]:
@@ -49,6 +52,17 @@ def window_from_numpy(arrays: dict, device=None) -> WindowState:
 def preint_from_numpy(arrays: dict, device=None) -> Preintegration:
     """A (possibly stacked) preintegration from ``to_numpy`` arrays."""
     return _from_numpy(Preintegration, arrays, device)
+
+
+def loop_db_from_numpy(arrays: dict, device=None) -> LoopDb:
+    return _from_numpy(LoopDb, arrays, device)
+
+
+def edge_fields(edge) -> dict:
+    """A pose-graph edge of either package as a dict of its fields (numpy
+    arrays copied); ``PgEdge(**edge_fields(e))`` builds it in the other."""
+    return {f.name: (np.array(v) if isinstance(v, np.ndarray) else v)
+            for f in dataclasses.fields(edge) for v in (getattr(edge, f.name),)}
 
 
 #: the estimator's inertial state: tensors, then host scalars

@@ -35,9 +35,15 @@
 //       landmarks; (5) cluster barrier; every CTA sums the C trial
 //       partials in rank order and takes the same accept/reject.
 //   Three cluster barriers per iteration; a rejected step skips (1).
-// K1 (pnp_kernel): one CTA of 512 threads (a cluster barrier would cost
-//   more than its K = 1 work; at 1024 threads the 64-register cap spills
-//   the pass and the solve to local memory). Every landmark is fixed, so
+// K1 (pnp_kernel): one CTA of 512 threads per PnP problem, B problems in
+//   one launch (gridDim.x = B: loop verification and relocalization solve
+//   the top verify_top_k candidates together, as the JAX package's vmap
+//   over pnp_solve gives B1 a batch grid axis). A CTA reads only its own
+//   problem's slices and runs the single-problem arithmetic, so each
+//   problem of a batch returns the bits of a launch of it alone. (A
+//   cluster barrier would cost more than a problem's K = 1 work; at 1024
+//   threads the 64-register cap spills the pass and the solve to local
+//   memory.) Every landmark is fixed, so
 //   an iteration is one pass at the trial pose that yields the cost AND
 //   the 28 normal-equation sums (U, b, cost), reduced in one block
 //   reduction; thread 0 holds the loop state, decides accept/reject and
@@ -734,6 +740,19 @@ __global__ void __launch_bounds__(kPnpThreads, 1)
 pnp_kernel(const float* r_in, const float* t_in, const float* pts, const float* obs,
            const unsigned char* active, const unsigned char* marg, float* r_out, float* t_out,
            unsigned char* outlier, float* cost_out, int* counts, int M, LmParams p) {
+  // this CTA's problem of the batch
+  const size_t b = blockIdx.x;
+  r_in += 9 * b;
+  t_in += 3 * b;
+  pts += 3 * M * b;
+  obs += 2 * M * b;
+  active += M * b;
+  marg += M * b;
+  r_out += 9 * b;
+  t_out += 3 * b;
+  outlier += M * b;
+  cost_out += b;
+  counts += 3 * b;
   __shared__ float pose[2][12];
   __shared__ float sums[2][32];
   __shared__ float slot[kPnpWarps][32];
@@ -898,14 +917,17 @@ int lm_ba_info(int K, int* cluster_ctas, int* smem_bytes, int* max_clusters) {
   return (int)ba_fit(K, 0, max_clusters);
 }
 
-// K1. Inputs: r [9], t [3], points [M][3], observations [M][2], active
-// and marginalized [M] bytes; outputs: r, t, outlier bytes [M], the final
-// mean inlier chi2, counts = (inliers, outliers, LM iterations).
+// K1 over B independent problems sharing one LmParams, one CTA each.
+// Inputs: r [B][9], t [B][3], points [B][M][3], observations [B][M][2],
+// active and marginalized [B][M] bytes; outputs: r, t, outlier bytes
+// [B][M], the final mean inlier chi2 [B], counts [B][3] = (inliers,
+// outliers, LM iterations).
 int lm_pnp(const float* r_in, const float* t_in, const float* pts, const float* obs,
            const unsigned char* active, const unsigned char* marg, float* r_out, float* t_out,
-           unsigned char* outlier, float* cost_out, int* counts, int M, const LmParams* p, void* stream) {
-  if (M < 1) return (int)cudaErrorInvalidValue;
-  pnp_kernel<<<1, kPnpThreads, 0, (cudaStream_t)stream>>>(r_in, t_in, pts, obs, active, marg, r_out, t_out,
+           unsigned char* outlier, float* cost_out, int* counts, int M, int B, const LmParams* p,
+           void* stream) {
+  if (M < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  pnp_kernel<<<B, kPnpThreads, 0, (cudaStream_t)stream>>>(r_in, t_in, pts, obs, active, marg, r_out, t_out,
                                                           outlier, cost_out, counts, M, *p);
   return (int)cudaGetLastError();
 }

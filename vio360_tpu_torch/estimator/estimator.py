@@ -7,11 +7,14 @@ the VO per-frame PnP backfill or the VIO promotion of the bootstrap
 window to keyframes and the IMU initialization with its quality gates;
 steady tracking frames with constant-velocity or IMU prediction;
 keyframe events with window BA or VIBA, the IMU-init retry after a
-rejection, and the periodic scale / gravity refine) and
-``export_trajectory``. The megastep, pipelined / batched loops, loop
-closure, pose graph and checkpoints are not ported yet; the constructor
-refuses configurations that need them. Every numeric stage runs on
-``self.device``; the host reads small records.
+rejection, and the periodic scale / gravity refine), the pose-graph
+store (eviction edges with covariance weights, loop edges, the SE(3) or
+Sim(3) solve at export), loop closure after every keyframe event,
+relocalization after ``loop.reloc_after`` lost frames, and
+``export_trajectory``. The megastep, pipelined / batched loops and
+checkpoints are not ported yet; the constructor refuses configurations
+that need them. Every numeric stage runs on ``self.device``; the host
+reads small records.
 """
 
 from __future__ import annotations
@@ -25,12 +28,15 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
-from ..config import VioConfig
+from ..config import VioConfig, fit_loop_config
 from ..frontend import tracker
 from ..geometry import lie
 from ..imu import preintegration as pre
+from ..loop import closure as loop_mod
 from ..solver import imu_init as imu_init_mod
+from ..solver import marginals
 from ..solver import pnp as pnp_mod
+from ..solver import pose_graph as pg_mod
 from ..utils.logging import StageTimer, get_logger
 from . import fused, initializer, window
 
@@ -50,13 +56,29 @@ class FrameResult:
     diag: dict[str, Any]
 
 
+@dataclasses.dataclass
+class PgEdge:
+    """One SE(3) relative constraint of the pose graph (``PgEdge`` of the
+    reference). ``w_sqrt`` is the [6] diagonal sqrt-information (rho,
+    phi). IMU edges keep what re-derives their translation under a world
+    similarity transform (their dP and gravity terms are metric; only the
+    v0 dt term follows the rescaled world)."""
+
+    fi: int
+    fj: int
+    rel_r: np.ndarray  # [3,3]
+    rel_t: np.ndarray  # [3]
+    w_sqrt: np.ndarray  # [6]
+    kind: str = "vis"  # "vis" | "skip" | "imu" | "loop"
+    v0: np.ndarray | None = None  # IMU: world velocity of node i at record time
+    r0: np.ndarray | None = None  # IMU: world rotation of node i at record time
+    dt: float = 0.0  # IMU: preintegration span [s]
+    dp: np.ndarray | None = None  # IMU: bias-corrected body-frame delta-p
+
+
 def unported_features(cfg: VioConfig) -> list[str]:
     """Configuration switches that need a part of the system not ported yet."""
     out = []
-    if cfg.loop.enabled:
-        out.append("loop closure (loop.enabled)")
-    if cfg.pose_graph.enabled:
-        out.append("the pose graph (pose_graph.enabled)")
     if cfg.solver.mesh:
         out.append("the distributed window solve (solver.mesh)")
     if cfg.solver.frames_per_dispatch > 1:
@@ -116,6 +138,20 @@ class Estimator:
         self.last_imu_rows = np.zeros((0, 7))
         self.preints = pre.stack([pre.identity_preintegration(dev)] * (cfg.window.max_keyframes - 1))
         self.n_pairs = 0  # live keyframe-pair count
+        # ---- pose-graph store: evicted keyframes (eviction order) and edges ----
+        self.pg_nodes: list[int] = []
+        self.pg_edges: list[PgEdge] = []
+        # per-keyframe local scale from the Sim(3) solve (export only)
+        self.kf_scale_log: dict[int, float] = {}
+        # ---- loop closure + relocalization ----
+        self.loop_closer = None
+        self.lost_streak = 0
+        self._last_kf_window_host = None  # (kf_id, kf_r, kf_t) of the last keyframe event
+        if cfg.loop.enabled:
+            fitted = fit_loop_config(cfg.loop, cfg.camera)
+            if fitted is not cfg.loop:
+                self.cfg = cfg = dataclasses.replace(cfg, loop=fitted)
+            self.loop_closer = loop_mod.LoopCloser(cfg, dev)
         self.timers = StageTimer()
 
     @contextlib.contextmanager
@@ -411,11 +447,145 @@ class Estimator:
                  np.round(res.bg.cpu().numpy(), 4))
         return True
 
+    # ------------------------------------------------------------------
+    # Pose graph
+    # ------------------------------------------------------------------
+
+    def _record_pose_graph_eviction(self) -> None:
+        """Staged eviction capture (the keyframe path outside
+        fused.keyframe_step): edges for window slot 0 from the current
+        window, before add_keyframe rolls it out."""
+        imu_edge = None
+        if self.imu_initialized and self.n_pairs > 0:
+            imu_edge = fused.imu_edge_parts(self.preints, self.bg, self.ba, self.win.kf_r[0],
+                                            self.win.kf_vel[0], self.gravity_w)
+        with self._stage("pose_graph_capture"):
+            cap = fused.unpack_capture(fused.eviction_capture(
+                self.cfg, self.win, self.r_cb, self.t_cb, imu_edge).cpu().numpy())
+        self._append_pg_edges_host(cap, imu_edge is not None)
+
+    def _append_pg_edges_host(self, cap: dict, use_imu: bool) -> None:
+        """Eviction capture (``fused.unpack_capture`` fields) -> PgEdge
+        records: the consecutive (0,1) edge, the (0,2) skip edge and, with
+        the IMU, the preintegration odometry edge of pair 0."""
+        pcfg = self.cfg.pose_graph
+        kf_id, kf_r, kf_t = cap["cap_kf_id"], cap["cap_kf_r"], cap["cap_kf_t"]
+        fid0 = int(kf_id[0])
+        if fid0 < 0:
+            return
+        self.pg_nodes.append(fid0)
+
+        def fallback(wt, wr):
+            return np.concatenate([np.full(3, wt), np.full(3, wr)]).astype(np.float32)
+
+        if pcfg.cov_weighted:
+            w01, w02 = np.asarray(cap["pair_w"])
+        else:
+            w01 = fallback(pcfg.vis_weight_t, pcfg.vis_weight_r)
+            w02 = fallback(pcfg.skip_weight_t, pcfg.skip_weight_r)
+
+        def rel(i, j):
+            return (np.asarray(kf_r[i].T @ kf_r[j], np.float32),
+                    np.asarray(kf_r[i].T @ (kf_t[j] - kf_t[i]), np.float32))
+
+        self.pg_edges.append(PgEdge(fid0, int(kf_id[1]), *rel(0, 1), w01, "vis"))
+        if int(kf_id[2]) >= 0:
+            self.pg_edges.append(PgEdge(fid0, int(kf_id[2]), *rel(0, 2), w02, "skip"))
+        e = cap["imu_edge"]
+        if use_imu and e["dt"] > 1e-6:
+            if pcfg.cov_weighted:
+                w_imu = np.concatenate(marginals.preint_edge_sqrt_info_diag(
+                    e["cov_r_diag"], e["cov_p_diag"], e["dt"], vel_sigma=pcfg.imu_vel_sigma,
+                    min_sigma_t=pcfg.min_sigma_t, min_sigma_r=pcfg.min_sigma_r))
+            else:
+                w_imu = fallback(pcfg.imu_weight_t, pcfg.imu_weight_r)
+            self.pg_edges.append(PgEdge(
+                fid0, int(kf_id[1]), np.asarray(e["dr"], np.float32),
+                np.asarray(e["t_rel"], np.float32), w_imu, "imu",
+                v0=np.asarray(cap["cap_vel0"], np.float32), r0=np.asarray(kf_r[0], np.float32),
+                dt=e["dt"], dp=np.asarray(e["dp"], np.float32)))
+
+    def optimize_pose_graph(self):
+        """Pose-graph solve over the evicted history and the live window.
+        Without loop edges: SE(3), the live window pinned at its refined
+        poses. With loop edges and no IMU: Sim(3) with the drift-floor
+        weights on odometry edges, only the first node pinned. With loop
+        edges and the IMU: SE(3) with capped loop weights, first node
+        pinned. Refined poses (and Sim(3) scales) go to the export log.
+        Returns the solver's result, or None without history."""
+        pcfg = self.cfg.pose_graph
+        if not pcfg.enabled or not self.pg_nodes or self.n_kf_host == 0:
+            return None
+        win_fids = [int(f) for f in self.win.kf_id[:self.n_kf_host].cpu().numpy() if f >= 0]
+        known = set(self.pg_nodes)
+        nodes = list(self.pg_nodes) + [f for f in win_fids if f not in known]
+        idx = {f: i for i, f in enumerate(nodes)}
+        edges = [e for e in self.pg_edges if e.fi in idx and e.fj in idx]
+        if not edges:
+            return None
+        p, c = len(nodes), len(edges)
+        rs = np.zeros((p, 3, 3), np.float32)
+        ts_ = np.zeros((p, 3), np.float32)
+        for f, i in idx.items():
+            logged = self.kf_pose_log.get(f)
+            if logged is None:
+                return None
+            rs[i], ts_[i] = logged
+        fixed = np.zeros(p, bool)
+        # Gauge: with odometry edges only, the live window is the best
+        # estimate and the history follows it; with loop edges the drift
+        # sits in the recent keyframes, so only the world anchor is fixed.
+        have_loops = any(e.kind == "loop" for e in edges)
+        if not have_loops:
+            for f in win_fids:
+                fixed[idx[f]] = True
+        fixed[idx[nodes[0]]] = True
+        ei = np.asarray([idx[e.fi] for e in edges], np.int64)
+        ej = np.asarray([idx[e.fj] for e in edges], np.int64)
+        rel_r = np.stack([e.rel_r for e in edges]).astype(np.float32)
+        rel_t = np.stack([e.rel_t for e in edges]).astype(np.float32)
+        w = np.stack([e.w_sqrt for e in edges]).astype(np.float32)
+        use_sim3 = have_loops and not self.imu_initialized
+        if use_sim3:
+            # monocular VO + loops: scale drift dominates and only Sim(3)
+            # expresses it; odometry weights get the systematic-drift floor
+            w = np.concatenate([w, np.zeros((c, 1), np.float32)], 1)
+            for k, e in enumerate(edges):
+                w[k, 6] = 1.0 / (pcfg.sim3_loop_scale_sigma if e.kind == "loop"
+                                 else pcfg.sim3_odom_scale_sigma)
+                if e.kind != "loop":
+                    sig_t = 0.05 * float(np.linalg.norm(e.rel_t)) + 1e-3
+                    w[k, :3] = np.minimum(w[k, :3], 1.0 / sig_t)
+                    w[k, 3:6] = np.minimum(w[k, 3:6], 1.0 / 0.03)
+        elif have_loops:
+            # SE(3) / VIO graph: cap the loop weights at their single-edge accuracy
+            for k, e in enumerate(edges):
+                if e.kind == "loop":
+                    w[k, :3] = np.minimum(w[k, :3], 100.0)
+                    w[k, 3:6] = np.minimum(w[k, 3:6], 150.0)
+        dev = self.device
+        args = [torch.as_tensor(a, device=dev) for a in (rs, ts_, ei, ej, rel_r, rel_t, w)]
+        args += [torch.ones(c, dtype=torch.bool, device=dev), torch.as_tensor(fixed, device=dev)]
+        with self._stage("pose_graph"):
+            if use_sim3:
+                res = pg_mod.optimize_pose_graph_sim3(*args, max_iterations=pcfg.max_iterations)
+                ls_out = res.log_s.cpu().numpy()
+            else:
+                res = pg_mod.optimize_pose_graph(*args, max_iterations=pcfg.max_iterations)
+            r_out, t_out = res.r_wb.cpu().numpy(), res.t_wb.cpu().numpy()
+        for f, i in idx.items():
+            if not fixed[i]:
+                self.kf_pose_log[f] = (r_out[i], t_out[i])
+                if use_sim3:
+                    # non-keyframes re-derive through anchors taken at the local scale
+                    self.kf_scale_log[f] = float(np.exp(ls_out[i]))
+        return res
+
     def _transform_history(self, r_wg, scale, t_anchor=None):
-        """Re-express the recorded trajectory, the export log and the live
-        pose in the gravity-aligned, rescaled world (anchored at the first
-        keyframe, as align_gravity_and_scale). The pose-graph edges of the
-        reference are not ported."""
+        """Re-express the recorded trajectory, the export log, the pose-graph
+        edges, the place database and the live pose in the gravity-aligned,
+        rescaled world (anchored at the first keyframe, as
+        align_gravity_and_scale)."""
         r_gw = np.asarray(r_wg.cpu().numpy() if torch.is_tensor(r_wg) else r_wg).T
         s = float(scale)
         if t_anchor is None:
@@ -425,9 +595,25 @@ class Estimator:
         self.trajectory = [(t, r_gw @ r, xf(p)) for (t, r, p) in self.trajectory]
         self.kf_pose_log = {fid: (r_gw @ r, xf(p)) for fid, (r, p) in self.kf_pose_log.items()}
         self.traj_rel = [None if e is None else (e[0], e[1], e[2] * s) for e in self.traj_rel]
+        # Edge rotations are invariant; visual translations scale by s. IMU
+        # edges do not: their dP and gravity terms are metric, so they are
+        # re-derived from v0' = s R_gw v0, R0' = R_gw R0 (gravity stays canonical).
+        g = self.gravity_w.cpu().numpy()
+
+        def xf_edge(e: PgEdge) -> PgEdge:
+            if e.kind != "imu":
+                return dataclasses.replace(e, rel_t=e.rel_t * s)
+            v0, r0 = s * (r_gw @ e.v0), r_gw @ e.r0
+            t_rel = r0.T @ (v0 * e.dt + 0.5 * g * e.dt * e.dt) + e.dp
+            return dataclasses.replace(e, rel_t=np.asarray(t_rel, np.float32),
+                                       v0=np.asarray(v0, np.float32), r0=np.asarray(r0, np.float32))
+
+        self.pg_edges = [xf_edge(e) for e in self.pg_edges]
         if self.last_kf_capture is not None:
             kr, kp = self.last_kf_capture
             self.last_kf_capture = (r_gw @ kr, xf(kp))
+        if self.loop_closer is not None:
+            self.loop_closer.transform(r_gw, s, t_anchor)
         r_gw_t = torch.as_tensor(r_gw, dtype=torch.float32, device=self.device)
         t_a = torch.as_tensor(t_anchor, dtype=torch.float32, device=self.device)
         self.r_cur, self.r_prev = r_gw_t @ self.r_cur, r_gw_t @ self.r_prev
@@ -453,12 +639,26 @@ class Estimator:
         diag = {"pnp_cost": b["pnp_cost"], "parallax": b["parallax"],
                 "n_shared": b["n_shared"], "n_active": b["n_active"]}
         r_np, t_np = b["r"], b["t"]
+        state = "tracking" if b["success"] else "tracking_lost"
         if b["is_kf"]:
             r_np, t_np = self._create_keyframe(timestamp, diag)
+            if self.loop_closer is not None:
+                r_np, t_np = self._loop_on_keyframe(diag, r_np, t_np)
+            self.lost_streak = 0
+        elif b["success"]:
+            self.lost_streak = 0
+        else:
+            self.lost_streak += 1
+            if (self.loop_closer is not None and self.lost_streak >= cfg.loop.reloc_after
+                    and self.loop_closer.n_entries > 0):
+                got = self._try_relocalize(diag)
+                if got is not None:
+                    r_np, t_np = got
+                    state = "relocalized"
+                    self.lost_streak = 0
         self._record(timestamp, r_np, t_np)
-        return FrameResult(self.frame_id, timestamp, "tracking" if b["success"] else "tracking_lost",
-                           np.asarray(r_np), np.asarray(t_np), b["is_kf"], b["n_tracked"],
-                           b["n_inliers"], diag)
+        return FrameResult(self.frame_id, timestamp, state, np.asarray(r_np), np.asarray(t_np),
+                           b["is_kf"], b["n_tracked"], b["n_inliers"], diag)
 
     def _kf_rows(self) -> np.ndarray:
         return (np.concatenate(self.imu_since_last_kf) if self.imu_since_last_kf
@@ -485,18 +685,23 @@ class Estimator:
             kf_rows = self._kf_rows()
             rows = torch.as_tensor(np.asarray(kf_rows[len(kf_rows) - min(len(kf_rows), cap):],
                                               np.float32).reshape(-1, 7), device=self.device)
+        capture = was_full and cfg.pose_graph.enabled
         with self._stage("keyframe_step"):
             (self.track, self.win, self.preints, self.bg, self.ba, self.r_cur, self.t_cur,
              self.vel_cur, record) = fused.keyframe_step(
                 cfg, self.track, self.win, float(timestamp), self.frame_id, self.r_cur, self.t_cur,
                 self.vel_cur, self.t_bc, use_imu=use_imu, preints=self.preints,
                 n_pairs=self.n_pairs, was_full=was_full, do_refine=do_refine, imu_rows=rows,
-                bg=self.bg, ba=self.ba, gravity_w=self.gravity_w, stage=self._stage,
+                bg=self.bg, ba=self.ba, gravity_w=self.gravity_w, capture=capture,
+                stage=self._stage,
             )
             rec = fused.unpack_kf_record(record.cpu().numpy(), max_kf)
         self.n_kf_host = n_kf_after
         self.n_pairs = pairs_after
         self.imu_since_last_kf = []
+        # eviction edges, in the pre-refine world like the rest of the history
+        if capture:
+            self._append_pg_edges_host(rec, use_imu)
         if rec["refine_applied"]:
             # the window and the live pose came out aligned; the history did not
             self.scale_refine_count += 1
@@ -511,6 +716,8 @@ class Estimator:
         was rejected at bootstrap): window BA, the new pair's
         preintegration kept, and a retry of IMU init on the refined window."""
         cfg = self.cfg
+        if self.n_kf_host == cfg.window.max_keyframes and cfg.pose_graph.enabled:
+            self._record_pose_graph_eviction()
         ids = torch.where(self.track.valid, self.track.ids, torch.full_like(self.track.ids, -1))
         self.win = window.add_keyframe(self.win, self.r_cur, self.t_cur, self.vel_cur, self.bg,
                                        self.ba, float(timestamp), self.frame_id, self.track.uv, ids)
@@ -547,6 +754,7 @@ class Estimator:
                 self.kf_pose_log[fid] = (rec["kf_r"][i], rec["kf_t"][i])
         self.last_kf_fid = self.frame_id
         self.last_kf_capture = (rec["kf_r"][i_last], rec["kf_t"][i_last])
+        self._last_kf_window_host = (rec["kf_id"], rec["kf_r"], rec["kf_t"])
         if rec["n_dropped"]:
             log.warning("landmark slots saturated: dropped %d new landmarks (capacity %d)",
                         rec["n_dropped"], self.win.max_lm)
@@ -555,9 +763,87 @@ class Estimator:
                     ba_cost=rec["ba_cost"], ba_inliers=rec["ba_inliers"])
         return rec["kf_r"][i_last], rec["kf_t"][i_last]
 
+    # ------------------------------------------------------------------
+    # Loop closure and relocalization
+    # ------------------------------------------------------------------
+
+    def _loop_on_keyframe(self, diag, r_np, t_np):
+        """Ingest the new keyframe into the place database and, when it is
+        queryable, retrieve + verify a loop candidate. An accepted closure
+        appends a ``loop`` edge and, above the correction floors, rigidly
+        corrects the live window, map and pose (yaw only once the IMU is
+        initialized: gravity alignment must survive). The image is the
+        u8-quantized frame, as the reference's."""
+        lc = self.loop_closer
+        ids = torch.where(self.track.valid, self.track.ids, torch.full_like(self.track.ids, -1))
+        with self._stage("loop"):
+            hit = lc.on_keyframe(fused.buf_image(self.img_prev, self.cfg.camera.height),
+                                 self.track.uv, ids, self.track.valid, self.win, self.r_cur,
+                                 self.t_cur, self.r_cb, self.t_cb, self.frame_id,
+                                 yaw_only=self.imu_initialized)
+        if hit is None:
+            return r_np, t_np
+        lcfg = self.cfg.loop
+        w = np.concatenate([np.full(3, lcfg.edge_weight_t),
+                            np.full(3, lcfg.edge_weight_r)]).astype(np.float32)
+        self.pg_edges.append(PgEdge(hit["old_fid"], hit["cur_fid"], hit["rel_r"].astype(np.float32),
+                                    hit["rel_t"].astype(np.float32), w, "loop"))
+        diag["loop_closed_to"] = hit["old_fid"]
+        diag["loop_inliers"] = hit["n_inliers"]
+        diag["loop_score"] = round(hit["score"], 3)
+        if not hit["apply_correction"]:
+            return r_np, t_np  # edge recorded; correction below the noise floor
+        rc, tc = hit["corr_r"], hit["corr_t"]
+        dev = self.device
+        (self.win, self.r_cur, self.t_cur, self.r_prev, self.t_prev,
+         self.vel_cur) = loop_mod.apply_world_correction(
+            self.win, torch.as_tensor(rc, device=dev), torch.as_tensor(tc, device=dev), self.r_cur,
+            self.t_cur, self.r_prev, self.t_prev, self.vel_cur)
+        # host mirrors of everything the correction moved
+        if self._last_kf_window_host is not None:
+            kf_id_h, kf_r_h, kf_t_h = self._last_kf_window_host
+            for i in range(len(kf_id_h)):
+                if int(kf_id_h[i]) >= 0:
+                    self.kf_pose_log[int(kf_id_h[i])] = (rc @ kf_r_h[i], rc @ kf_t_h[i] + tc)
+        if self.last_kf_capture is not None:
+            kr, kp = self.last_kf_capture
+            self.last_kf_capture = (rc @ kr, rc @ kp + tc)
+        log.info("loop closure: frame %d -> %d (%d matches, %d inliers, score %.2f, |dt|=%.3f m)",
+                 self.frame_id, hit["old_fid"], hit["n_match"], hit["n_inliers"], hit["score"],
+                 float(np.linalg.norm(tc)))
+        return rc @ r_np, rc @ t_np + tc
+
+    def _try_relocalize(self, diag):
+        """Query the place database with the current (lost) frame and PnP
+        against the best candidate's stored landmarks. On success: reset
+        the pose, zero the velocity, and inject the matched landmarks as
+        marginalized entries linked to the current tracker ids, so PnP has
+        associations again on the next frame."""
+        lc = self.loop_closer
+        ids = torch.where(self.track.valid, self.track.ids, torch.full_like(self.track.ids, -1))
+        with self._stage("reloc"):
+            rec, r_b, t_b, inj_pos, inj_ok = lc.relocalize(
+                fused.buf_image(self.img_prev, self.cfg.camera.height), self.track.uv, ids,
+                self.track.valid, self.r_cb, self.t_cb)
+        if rec is None:
+            return None
+        self.r_cur, self.t_cur = r_b, t_b
+        self.r_prev, self.t_prev = r_b, t_b
+        self.vel_cur = torch.zeros(3, device=self.device)
+        i_last = max(self.n_kf_host - 1, 0)
+        self.win = loop_mod.inject_landmarks(self.win, inj_pos, inj_ok, ids, self.win.kf_id[i_last])
+        diag["reloc_to"] = rec["old_fid"]
+        diag["reloc_inliers"] = rec["n_inliers"]
+        log.info("relocalized against frame %d (%d inliers, score %.2f)", rec["old_fid"],
+                 rec["n_inliers"], rec["score"])
+        return r_b.cpu().numpy(), t_b.cpu().numpy()
+
     def export_trajectory(self):
         """Trajectory with keyframes at their latest refined poses and
-        non-keyframes re-derived from their reference keyframe."""
+        non-keyframes re-derived from their reference keyframe (scaled by
+        its Sim(3) scale); a pose-graph solve first propagates the live
+        window's refinements back through the evicted history."""
+        self.optimize_pose_graph()
         ts = np.asarray([t for t, _, _ in self.trajectory])
         rs = np.stack([r for _, r, _ in self.trajectory]) if self.trajectory else np.zeros((0, 3, 3))
         ps = np.stack([p for _, _, p in self.trajectory]) if self.trajectory else np.zeros((0, 3))
@@ -569,7 +855,7 @@ class Estimator:
             if refined is not None:
                 kr, kp = refined
                 rs[i] = kr @ rel_r
-                ps[i] = kp + kr @ rel_p
+                ps[i] = kp + kr @ (rel_p * self.kf_scale_log.get(kf_fid, 1.0))
         for fid, (r, p) in self.kf_pose_log.items():
             if 0 <= fid < len(ts):
                 rs[fid] = r

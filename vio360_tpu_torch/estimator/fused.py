@@ -6,11 +6,11 @@ already matches the reference), ``tracking_step`` with constant-velocity
 or IMU prediction, the keyframe decision, and the keyframe event
 (``_kf_event_body``): window append, the keyframe-pair preintegration
 with roll on eviction, window BA or VIBA, bias re-linearization, the
-gated scale / gravity refine, outlier relabel and triangulation. The
-JAX module fused each into one compiled dispatch; here they are plain
-functions whose device work is the hand-written kernels (LK, PnP,
-window BA) plus PyTorch ops, and the host reads one small record per
-frame. The pose-graph parts of the keyframe record are not ported.
+gated scale / gravity refine, outlier relabel and triangulation, with
+the eviction capture for the pose graph. The JAX module fused each into
+one compiled dispatch; here they are plain functions whose device work
+is the hand-written kernels (LK, PnP, window BA) plus PyTorch ops, and
+the host reads one small record per frame.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from ..geometry import camera as cam_g
 from ..geometry import lie
 from ..imu import preintegration as pre
 from ..solver import imu_init as imu_init_mod
+from ..solver import marginals
 from ..solver import pnp as pnp_mod
 from . import initializer, window
 
@@ -245,19 +246,67 @@ def align_window(win: window.WindowState, r_wg, scale, velocities, applied=None)
     )
 
 
+def imu_edge_parts(preints, bg, ba, kf_r0, kf_vel0, gravity_w) -> torch.Tensor:
+    """[22]: the bias-corrected IMU odometry measurement of pair 0 for a
+    pose-graph edge (``_imu_edge_parts``): dr (9), dp (3), dt (1), t_rel
+    (3) and the rotation / position covariance diagonals (3 + 3)."""
+    p0 = preints.map(lambda a: a[0])
+    dbg, dba = bg - p0.bg, ba - p0.ba
+    dr = p0.delta_r @ lie.so3_exp(p0.j_rg @ dbg)
+    dp = p0.delta_p + p0.j_pg @ dbg + p0.j_pa @ dba
+    dt = p0.dt_total
+    t_rel = kf_r0.T @ (kf_vel0 * dt + 0.5 * gravity_w * dt * dt) + dp
+    cov_d = torch.diagonal(p0.cov)
+    return torch.cat([dr.reshape(9), dp, dt.reshape(1), t_rel, cov_d[0:3], cov_d[6:9]])
+
+
+CAPTURE_LEN = 76  # eviction capture: kf_id (3), kf_r (27), kf_t (9), vel0 (3), pair_w (12), IMU edge (22)
+
+
+def eviction_capture(cfg: VioConfig, win, r_cb, t_cb, imu_edge=None) -> torch.Tensor:
+    """[CAPTURE_LEN] flat capture of the pre-eviction window for the
+    pose-graph store: slots 0-2, the velocity of slot 0, the (0,1) and
+    (0,2) sqrt-information when ``pose_graph.cov_weighted`` (else 0) and
+    the IMU edge parts when given (else 0)."""
+    dev = win.kf_r.device
+    pair_w = (marginals.window_pair_sqrt_info(win, cfg, r_cb, t_cb) if cfg.pose_graph.cov_weighted
+              else torch.zeros(2, 6, device=dev))
+    if imu_edge is None:
+        imu_edge = torch.zeros(22, device=dev)
+    return torch.cat([win.kf_id[:3].to(torch.float32), win.kf_r[:3].reshape(27),
+                      win.kf_t[:3].reshape(9), win.kf_vel[0], pair_w.reshape(12), imu_edge])
+
+
+def unpack_capture(rec: np.ndarray) -> dict:
+    """Host-side unpack of ``eviction_capture``."""
+    e = rec[54:76]
+    return {
+        "cap_kf_id": rec[0:3].astype(np.int32), "cap_kf_r": rec[3:30].reshape(3, 3, 3).copy(),
+        "cap_kf_t": rec[30:39].reshape(3, 3).copy(), "cap_vel0": rec[39:42].copy(),
+        "pair_w": rec[42:54].reshape(2, 6).copy(),
+        "imu_edge": {"dr": e[0:9].reshape(3, 3).copy(), "dp": e[9:12].copy(), "dt": float(e[12]),
+                     "t_rel": e[13:16].copy(), "cov_r_diag": e[16:19].copy(),
+                     "cov_p_diag": e[19:22].copy()},
+    }
+
+
 def keyframe_step(cfg: VioConfig, track, win, timestamp, frame_id, r_cur, t_cur, vel_cur, t_bc,
                   use_imu: bool = False, preints=None, n_pairs: int = 0, was_full: bool = False,
                   do_refine: bool = False, imu_rows=None, bg=None, ba=None, gravity_w=None,
-                  stage=_no_stage):
-    """The keyframe event (``_kf_event_body``): add_keyframe -> [VIO: the
-    new pair's preintegration, rolled in on eviction] -> window BA or
-    VIBA -> [VIO: bias re-linearization of every pair, the scale /
-    gravity refine when ``do_refine`` and the solve passes its gates] ->
-    outlier relabel -> triangulation -> packed record.
+                  capture: bool = False, stage=_no_stage):
+    """The keyframe event (``_kf_event_body``): [``capture``: the eviction
+    capture on the pre-eviction window] -> add_keyframe -> [VIO: the new
+    pair's preintegration, rolled in on eviction] -> window BA or VIBA ->
+    [VIO: bias re-linearization of every pair, the scale / gravity refine
+    when ``do_refine`` and the solve passes its gates] -> outlier relabel
+    -> triangulation -> packed record.
 
-    Returns (track', win', preints', bg', ba', r', t', vel', record);
-    the record holds the VO / VIO fields of the reference's keyframe
-    record (``unpack_kf_record``)."""
+    Returns (track', win', preints', bg', ba', r', t', vel', record); the
+    record has the reference's keyframe-record layout
+    (``unpack_kf_record``). The reference computes the capture on every
+    keyframe and its host reads it only when the window was full and the
+    pose graph is on; here the caller asks for it only then (``capture``),
+    and the record's capture fields are 0 otherwise."""
     dev = win.kf_r.device
     w, h = cfg.camera.width, cfg.camera.height
     wcfg, icfg = cfg.window, cfg.imu
@@ -265,6 +314,13 @@ def keyframe_step(cfg: VioConfig, track, win, timestamp, frame_id, r_cur, t_cur,
     zeros = torch.zeros(3, device=dev)
     if bg is None:
         bg, ba = zeros, zeros
+    cap = torch.zeros(CAPTURE_LEN, device=dev)
+    if capture:
+        with stage("pose_graph_capture"):
+            r_bc, p_bc = t_bc[:3, :3], t_bc[:3, 3]
+            imu_edge = (imu_edge_parts(preints, bg, ba, win.kf_r[0], win.kf_vel[0], gravity_w)
+                        if use_imu else None)
+            cap = eviction_capture(cfg, win, r_bc.T, -(r_bc.T @ p_bc), imu_edge)
     ids = torch.where(track.valid, track.ids, torch.full_like(track.ids, -1))
     win = window.add_keyframe(win, r_cur, t_cur, vel_cur, bg, ba, timestamp, frame_id, track.uv, ids)
     if use_imu:
@@ -307,13 +363,14 @@ def keyframe_step(cfg: VioConfig, track, win, timestamp, frame_id, r_cur, t_cur,
     win, n_new, n_dropped = window.triangulate_new_landmarks(win, t_bc, w, h, live_ids=track.ids)
     i_last = torch.clamp(win.n_kf - 1, 0, max_kf - 1).to(torch.int64)
     vel_out = win.kf_vel[i_last] if use_imu else vel_cur
-    record = kf_record(res, win, n_new, n_dropped, applied, refine_s, r_wg, t_anchor)
+    record = kf_record(res, win, n_new, n_dropped, applied, refine_s, r_wg, t_anchor, cap)
     return track, win, preints, bg, ba, win.kf_r[i_last], win.kf_t[i_last], vel_out, record
 
 
-def kf_record(res, win, n_new, n_dropped, applied=None, refine_s=None, r_wg=None, t_anchor=None):
+def kf_record(res, win, n_new, n_dropped, applied=None, refine_s=None, r_wg=None, t_anchor=None,
+              capture=None):
     """The keyframe event's flat f32 record (``unpack_kf_record``); the
-    refine fields default to "not applied"."""
+    refine fields default to "not applied", the capture to 0."""
     dev = win.kf_r.device
     f = lambda x: torch.as_tensor(x, device=dev).to(torch.float32).reshape(-1)
     return torch.cat([
@@ -321,7 +378,13 @@ def kf_record(res, win, n_new, n_dropped, applied=None, refine_s=None, r_wg=None
         f((win.lm_marg & win.lm_alive).sum()), f(False if applied is None else applied),
         f(1.0 if refine_s is None else refine_s), f(torch.eye(3) if r_wg is None else r_wg),
         f(win.kf_t[0] if t_anchor is None else t_anchor), f(win.kf_id), f(win.kf_r), f(win.kf_t),
+        torch.zeros(CAPTURE_LEN, device=dev) if capture is None else capture,
     ])
+
+
+def kf_record_len(max_kf: int) -> int:
+    """Flat length of the keyframe record (the reference's)."""
+    return 20 + 13 * max_kf + CAPTURE_LEN
 
 
 def unpack_kf_record(rec: np.ndarray, max_kf: int) -> dict:
@@ -335,4 +398,5 @@ def unpack_kf_record(rec: np.ndarray, max_kf: int) -> dict:
         "kf_id": rec[o:o + k].astype(np.int32),
         "kf_r": rec[o + k:o + 10 * k].reshape(k, 3, 3).copy(),
         "kf_t": rec[o + 10 * k:o + 13 * k].reshape(k, 3).copy(),
+        **unpack_capture(rec[o + 13 * k:]),
     }

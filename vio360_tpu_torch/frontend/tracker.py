@@ -51,8 +51,21 @@ def init_state(capacity: int, device=None) -> TrackState:
 
 def scatter_drop(target: torch.Tensor, dest: torch.Tensor, values) -> torch.Tensor:
     """``target.at[dest].set(values, mode="drop")``: rows with dest ==
-    len(target) land in a scratch row that is cut off."""
+    len(target) land in a scratch row that is cut off. Where several rows
+    share a destination the last one wins, as in the XLA CPU scatter the
+    reference is tested on; the winner is picked explicitly, because on
+    the card a plain index_put leaves it to the order its threads run in
+    (a landmark join by tracker slot then depends on the run)."""
     ext = torch.cat([target, target[:1]], 0)
+    n, k = ext.shape[0], dest.shape[0]
+    dest = dest.to(torch.int64)
+    order = torch.arange(k, device=dest.device)
+    # rows bound for the scratch row get keys of their own, so that the
+    # card's atomics do not pile up on one address
+    key = torch.where(dest == n - 1, n + order, dest)
+    last = torch.full((n + k,), -1, dtype=torch.int64, device=dest.device).scatter_reduce(
+        0, key, order, reduce="amax")
+    dest = torch.where(last[key] == order, dest, torch.full_like(dest, n - 1))
     ext[dest] = values if torch.is_tensor(values) else torch.as_tensor(values, dtype=ext.dtype, device=ext.device)
     return ext[:-1]
 

@@ -32,6 +32,11 @@ def hat(v: torch.Tensor) -> torch.Tensor:
     )
 
 
+def vee(m: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] skew-symmetric -> [..., 3]."""
+    return torch.stack([m[..., 2, 1], m[..., 0, 2], m[..., 1, 0]], -1)
+
+
 def _coefs(phi: torch.Tensor):
     theta2 = (phi * phi).sum(-1)[..., None, None]
     theta = torch.sqrt(theta2)
@@ -74,7 +79,7 @@ def so3_log(r: torch.Tensor) -> torch.Tensor:
     cols = r + _eye_like(r)  # [..., 3, 3]; column k of (R + I)
     col = torch.gather(cols, -1, k[..., None, :].expand(*cols.shape[:-1], 1))[..., 0] / (2.0 * ax)
     col = col / torch.clamp(torch.linalg.norm(col, dim=-1, keepdim=True), min=_EPS)
-    sign = torch.where((col * w).sum(-1, keepdim=True) < 0.0, -1.0, 1.0)
+    sign = 1.0 - 2.0 * ((col * w).sum(-1, keepdim=True) < 0.0).to(r.dtype)
     near_pi = theta_pi[..., None] * sign * col
     return torch.where(
         is_small[..., None], small, torch.where(is_pi[..., None], near_pi, generic)
@@ -106,6 +111,24 @@ def se3_exp(xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Twist [..., 6] = [rho, phi] -> (R [..., 3, 3], t [..., 3])."""
     rho, phi = xi[..., :3], xi[..., 3:]
     return so3_exp(phi), (_se3_v_matrix(phi) @ rho[..., None])[..., 0]
+
+
+def _se3_v_inv(phi: torch.Tensor) -> torch.Tensor:
+    theta2, theta, k, k2, small = _coefs(phi)
+    one = torch.ones_like(theta)
+    sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+    safe_t2 = torch.where(small, one, theta2)
+    den = 2.0 * theta * torch.where(torch.abs(sin_t) < _EPS, one, sin_t)
+    safe_den = torch.where(small, one, den)
+    c = torch.where(small, 1.0 / 12.0 + theta2 / 720.0, 1.0 / safe_t2 - (1.0 + cos_t) / safe_den)
+    return _eye_like(phi) - 0.5 * k + c * k2
+
+
+def se3_log(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(R [..., 3, 3], t [..., 3]) -> twist [..., 6] = [rho, phi] with t = V(phi) rho."""
+    phi = so3_log(r)
+    rho = (_se3_v_inv(phi) @ t[..., None])[..., 0]
+    return torch.cat([rho, phi], -1)
 
 
 def se3_inverse(r: torch.Tensor, t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -20,7 +20,9 @@ shared memory in rank order, so two calls on the same inputs return the
 same bits and iteration count. K1 is one CTA of 512 threads that reads
 f32 points and observations and bool masks in the caller's layout and
 writes ``pnp_solve``'s outputs itself, so on the main path its wrapper
-launches nothing else. K2/K3 take a scratch buffer of M*K*18 (W blocks) + M*9 (V upper,
+launches nothing else; given a leading batch dimension B it solves B
+independent problems in one launch of B CTAs (``PNP_BATCHES`` counts
+launches by B), each returning the bits of a launch of it alone. K2/K3 take a scratch buffer of M*K*18 (W blocks) + M*9 (V upper,
 b_l) + M*9 (damped V^-1) + 3*M (trial landmarks) floats. A launch that
 fails, a cluster that does not fit on the card included, raises.
 
@@ -49,6 +51,8 @@ _MAX_K = 16
 
 #: kernel launches by name ("lm_pnp", "lm_ba_solve", "lm_ba_iteration")
 LAUNCHES: collections.Counter = collections.Counter()
+#: K1 launches by batch size B (problems per launch)
+PNP_BATCHES: collections.Counter = collections.Counter()
 
 
 class _LmParams(ctypes.Structure):
@@ -70,7 +74,7 @@ _VP, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 _SIGS = {
     "lm_ba": [_VP] * 11 + [_I, _I, ctypes.POINTER(_LmParams), _I, _VP],
     "lm_ba_info": [_I, _IP, _IP, _IP],
-    "lm_pnp": [_VP] * 11 + [_I, ctypes.POINTER(_LmParams), _VP],
+    "lm_pnp": [_VP] * 11 + [_I, _I, ctypes.POINTER(_LmParams), _VP],
 }
 
 # id(tensor) -> (weak reference, version, its values): the extrinsic is the
@@ -382,7 +386,13 @@ def _ba_plain(r_wb, t_wb, points, obs_uv, obs_w, fixed_pose, fixed_point, lam, r
 
 def _pnp_plain(r_wb, t_wb, points, obs_uv, active, marginalized, lam, r_cb, t_cb, width, height,
                pixel_noise_std, huber_delta, chi2_threshold, rounds, max_iterations):
-    """Twin of ba_pallas._pnp_solve_kernel."""
+    """Twin of ba_pallas._pnp_solve_kernel; a leading batch dimension is
+    solved one problem after the other."""
+    if points.dim() == 3:
+        outs = [_pnp_plain(r_wb[b], t_wb[b], points[b], obs_uv[b], active[b], marginalized[b], lam,
+                           r_cb, t_cb, width, height, pixel_noise_std, huber_delta, chi2_threshold,
+                           rounds, max_iterations) for b in range(points.shape[0])]
+        return tuple(torch.stack(x) for x in zip(*outs))
     m = points.shape[0]
     pose0 = torch.cat([r_wb.reshape(1, 9), t_wb.reshape(1, 3)], 1).float()
     pts = points.float()
@@ -502,7 +512,10 @@ def pnp_solve(r_wb, t_wb, points, obs_uv, active, marginalized, lam, r_cb, t_cb,
               pixel_noise_std=1.0, huber_delta=1.0, chi2_threshold=5.991, rounds=4,
               max_iterations=50):
     """K1: the whole PnP (rounds x LM + chi2 classification). Returns
-    (r_new, t_new, outlier [M] bool, final_cost, n_inl, n_out)."""
+    (r_new, t_new, outlier [M] bool, final_cost, n_inl, n_out); with a
+    leading batch dimension B on every per-problem argument (r [B,3,3],
+    t [B,3], points [B,M,3], obs [B,M,2], masks [B,M]) each result gains
+    it too, and the B problems are one launch."""
     args = (r_wb, t_wb, points, obs_uv, active, marginalized, float(lam), r_cb, t_cb, width, height,
             pixel_noise_std, huber_delta, chi2_threshold, rounds, max_iterations)
     if not check_kernel_device(points, "pnp_solve"):
@@ -512,27 +525,34 @@ def pnp_solve(r_wb, t_wb, points, obs_uv, active, marginalized, lam, r_cb, t_cb,
 
 def _pnp_launch(r_wb, t_wb, points, obs_uv, active, marginalized, lam, r_cb, t_cb, width, height,
                 pixel_noise_std, huber_delta, chi2_threshold, rounds, max_iterations):
-    """K1's launch -> pnp_solve's results and the LM iterations over all rounds."""
-    m = points.shape[0]
+    """K1's launch -> pnp_solve's results and the LM iterations over all
+    rounds (per problem when batched)."""
+    lead = points.shape[:-2]  # () or (B,)
+    if len(lead) > 1:
+        raise ValueError("lm_pnp: at most one batch dimension")
+    b, m = (lead[0] if lead else 1), points.shape[-2]
     dev = points.device
-    if obs_uv.shape != (m, 2) or active.shape != (m,) or marginalized.shape != (m,):
+    if (points.shape != (*lead, m, 3) or r_wb.shape != (*lead, 3, 3) or t_wb.shape != (*lead, 3)
+            or obs_uv.shape != (*lead, m, 2) or active.shape != (*lead, m)
+            or marginalized.shape != (*lead, m)):
         raise ValueError("lm_pnp: inconsistent shapes")
     _check("lm_pnp", dict(r_wb=r_wb, t_wb=t_wb, obs_uv=obs_uv, active=active, marginalized=marginalized), dev)
     r_in, t_in, pts, obs = _f32(r_wb), _f32(t_wb), _f32(points), _f32(obs_uv)
     act, marg = (x.to(torch.bool).contiguous().view(torch.uint8) for x in (active, marginalized))
-    r_out = torch.empty(3, 3, dtype=torch.float32, device=dev)
-    t_out = torch.empty(3, dtype=torch.float32, device=dev)
-    outlier = torch.empty(m, dtype=torch.bool, device=dev)
-    cost = torch.empty((), dtype=torch.float32, device=dev)
-    counts = torch.empty(3, dtype=torch.int32, device=dev)  # inliers, outliers, LM iterations
+    r_out = torch.empty(*lead, 3, 3, dtype=torch.float32, device=dev)
+    t_out = torch.empty(*lead, 3, dtype=torch.float32, device=dev)
+    outlier = torch.empty(*lead, m, dtype=torch.bool, device=dev)
+    cost = torch.empty(lead, dtype=torch.float32, device=dev)
+    counts = torch.empty(*lead, 3, dtype=torch.int32, device=dev)  # inliers, outliers, LM iterations
     prm = _params(width, height, pixel_noise_std, huber_delta, lam, r_cb, t_cb, step_tol=1e-16,
                   chi2_threshold=chi2_threshold, diag_damping=True,
                   max_iterations=max_iterations, rounds=rounds)
     ptr = cuda_build.ptr
     err = _lib().lm_pnp(
         ptr(r_in), ptr(t_in), ptr(pts), ptr(obs), ptr(act), ptr(marg), ptr(r_out), ptr(t_out),
-        ptr(outlier), ptr(cost), ptr(counts), m, ctypes.byref(prm), cuda_build.stream_ptr(dev),
+        ptr(outlier), ptr(cost), ptr(counts), m, b, ctypes.byref(prm), cuda_build.stream_ptr(dev),
     )
     cuda_build.check(err, "lm_pnp launch")
     LAUNCHES["lm_pnp"] += 1
-    return r_out, t_out, outlier, cost, counts[0], counts[1], counts[2]
+    PNP_BATCHES[b] += 1
+    return r_out, t_out, outlier, cost, counts[..., 0], counts[..., 1], counts[..., 2]

@@ -6,7 +6,8 @@ landmarks never outliers, Huber(1.0), >= 10 inliers required else the
 predicted pose is kept; every round restarts from the initial pose.
 
 ``solve_pnp`` is the dispatcher the main path calls: it runs kernel K1
-(``ba_cuda.pnp_solve``), which on a CPU tensor takes its plain version.
+(``ba_cuda.pnp_solve``), which on a CPU tensor takes its plain version;
+loop verification and relocalization give it a batch of candidates.
 ``solve_pnp_xla`` is the twin of the JAX package's XLA formulation,
 kept as an independent reference for the tests.
 """
@@ -34,11 +35,11 @@ class PnpResult:
 
 def _finish(r_init, t_init, r_fin, t_fin, active, num_inliers, num_outliers, outlier,
             final_cost, min_inliers) -> PnpResult:
-    success = (active.sum() >= 6) & (num_inliers >= min_inliers)
+    success = (active.sum(-1) >= 6) & (num_inliers >= min_inliers)
     # Snap onto SO(3) on the way out: PnP output feeds the next frame's
     # constant-velocity prediction, which amplifies off-manifold error.
-    r_out = lie.so3_renormalize(torch.where(success, r_fin, r_init))
-    t_out = torch.where(success, t_fin, t_init)
+    r_out = lie.so3_renormalize(torch.where(success[..., None, None], r_fin, r_init))
+    t_out = torch.where(success[..., None], t_fin, t_init)
     return PnpResult(r_out, t_out, success, num_inliers, num_outliers, outlier, final_cost)
 
 
@@ -46,7 +47,11 @@ def solve_pnp(r_wb_init, t_wb_init, points_w, obs_uv, active, marginalized, r_cb
               width: int, height: int, pixel_noise_std: float = 1.0, huber_delta: float = 1.0,
               chi2_threshold: float = 5.991, rounds: int = 4, max_iterations: int = 50,
               min_inliers: int = 10) -> PnpResult:
-    """PnP through kernel K1 (one launch for all rounds)."""
+    """PnP through kernel K1 (one launch for all rounds). With a leading
+    batch dimension B on the pose, points, observations and masks, B
+    independent problems go to K1 in one launch and every field of the
+    result gains that dimension (the JAX package's ``vmap`` of
+    ``solve_pnp``)."""
     r_fin, t_fin, outlier, final_cost, n_inl, n_out = ba_cuda.pnp_solve(
         r_wb_init, t_wb_init, points_w, obs_uv, active, marginalized, 1e-4, r_cb, t_cb,
         width, height, pixel_noise_std=pixel_noise_std, huber_delta=huber_delta,

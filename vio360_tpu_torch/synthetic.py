@@ -7,7 +7,8 @@ Counterpart of the renderers in ``tests/synthetic.py`` (``make_panorama``,
 torch, so a machine without JAX can render the same sequences. The
 analytic trajectory is imported from the tool itself (numpy only at
 module level). ``make_dataset`` writes the tool's noise-free sequence,
-images and IMU stream; the tool's noise and photometric / dynamic
+images and IMU stream, with the tool's closed-circuit revisit trajectory,
+its photometric noise and its blackout; its other photometric and dynamic
 nuisance options belong to later slices.
 """
 
@@ -28,11 +29,11 @@ from .ops.sampling import bilinear_sample
 _TOOL = Path(__file__).resolve().parents[1] / "tools" / "make_synthetic_dataset.py"
 
 
-def _analytic_trajectory():
+def _tool_trajectory(name: str):
     spec = importlib.util.spec_from_file_location("_make_synthetic_dataset", _TOOL)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.analytic_trajectory
+    return getattr(mod, name)
 
 
 def make_panorama(seed: int, height: int, width: int, octaves: int = 4, device=None) -> torch.Tensor:
@@ -116,14 +117,20 @@ def render_point_image(points_w: np.ndarray, r_wc: np.ndarray, t_wc: np.ndarray,
 def make_dataset(out_dir: str, frames: int = 40, width: int = 480, height: int = 240,
                  points: int = 500, seed: int = 11, fps: float = 10.0, imu_hz: float = 200.0,
                  accel_scale: float = 1.0, yaw_rate: float = 0.25, tilt=(0.06, -0.04),
-                 texture: bool = False, texture_radius: float = 6.0, device=None) -> dict:
+                 texture: bool = False, texture_radius: float = 6.0, revisit: bool = False,
+                 laps: int = 1, pixel_noise: float = 0.0, blackout: tuple | None = None,
+                 device=None) -> dict:
     """Write a sequence in the reference layout (images/*.npy,
     cam_timestamps.txt, imu_data.csv, groundtruth.tum) along the tool's
-    analytic trajectory: the same frames and IMU rows as
-    ``tools/make_synthetic_dataset.py`` with its noise and nuisances off
-    (gravity tilted by ``tilt``, accelerometer from the analytic
-    derivative, gyro from the midpoint log of the rotation increments).
-    Returns the ground truth."""
+    analytic trajectory (``revisit``: its closed circuit, traversed
+    ``laps`` times): the frames and IMU rows of
+    ``tools/make_synthetic_dataset.py`` with its IMU noise and its other
+    nuisances off (gravity tilted by ``tilt``, accelerometer from the
+    analytic derivative, gyro from the midpoint log of the rotation
+    increments). ``pixel_noise`` adds Gaussian noise of that std to every
+    frame and ``blackout=(a, b)`` renders frames [a, b) as the tool's
+    sensor noise floor, both drawn from a numpy generator seeded with
+    ``seed`` (not the tool's draws bit for bit). Returns the ground truth."""
     from .io import trajectory as tio
     from .solver.imu_init import gravity_dir_to_rotation
 
@@ -132,7 +139,11 @@ def make_dataset(out_dir: str, frames: int = 40, width: int = 480, height: int =
     dt = 1.0 / imu_hz
     per_frame = int(round(imu_hz / fps))
     ts = np.arange((frames - 1) * per_frame + 1) * dt
-    p_w, _, a_w, phi = _analytic_trajectory()(ts, accel_scale, yaw_rate)
+    if revisit:
+        p_w, _, a_w, phi = _tool_trajectory("revisit_trajectory")(ts, accel_scale, yaw_rate,
+                                                                   laps=laps)
+    else:
+        p_w, _, a_w, phi = _tool_trajectory("analytic_trajectory")(ts, accel_scale, yaw_rate)
     r_all = lie.so3_exp(torch.as_tensor(phi, dtype=torch.float32)).numpy()
 
     r_wg = gravity_dir_to_rotation(torch.as_tensor(tilt, dtype=torch.float32)).numpy()
@@ -157,6 +168,7 @@ def make_dataset(out_dir: str, frames: int = 40, width: int = 480, height: int =
     with open(os.path.join(out_dir, "cam_timestamps.txt"), "w") as f:
         f.write("\n".join(f"{t:.6f}" for t in stamps) + "\n")
     pano = make_panorama(seed + 77, 2 * height, 2 * width, octaves=6, device=device) if texture else None
+    rng = np.random.default_rng(seed)
     for k in range(frames):
         if texture:
             img = render_textured_view(pano, torch.as_tensor(r_wb[k], device=device),
@@ -164,6 +176,11 @@ def make_dataset(out_dir: str, frames: int = 40, width: int = 480, height: int =
                                        radius=texture_radius).cpu().numpy()
         else:
             img = render_point_image(pts, r_wb[k], p_w[frame_idx[k]], width, height)
+        if pixel_noise > 0:
+            img = img + rng.standard_normal(img.shape).astype(np.float32) * pixel_noise
+        if blackout is not None and blackout[0] <= k < blackout[1]:
+            # total exposure failure: the sensor noise floor only
+            img = rng.standard_normal(img.shape).astype(np.float32) * 0.01 + 0.02
         np.save(os.path.join(out_dir, "images", f"{k:06d}.npy"),
                 np.clip(img, 0.0, 1.0).astype(np.float32))
     tio.write_tum(os.path.join(out_dir, "groundtruth.tum"), stamps, r_wb, p_w[frame_idx])
