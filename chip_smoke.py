@@ -49,11 +49,26 @@ Phases (any failure raises and the script exits non-zero):
    configs/synthetic_480.yaml; it must lose tracking in the blackout,
    relocalize within 2 frames of the JAX package, track on every frame
    after that and stay within the JAX bound on the ATE after it
-   (``tools/jax_loop_reference.py`` gives the JAX numbers of 7 and 8).
+   (``tools/jax_loop_reference.py`` gives the JAX numbers of 7, 8 and 10);
+9. resume: on phase 7's sequence, the CLI with ``--vo --max-frames 150
+   --checkpoint``, then ``--vo --resume`` of that checkpoint under
+   ``--profile``; the resumed trajectory must equal phase 7's bit for bit
+   (the TUM text), with the same verified loops and pose-graph counts, and
+   the profiler's trace must name ``lk_kernel``, ``pnp_kernel`` and
+   ``ba_kernel``;
+10. VIO at the defaults: render the 100-frame 960x480 one-lap revisit
+   sequence (seed 41, pixel noise 0.05) and run the CLI on it with its IMU
+   stream at the defaults (loop closure and the pose graph with IMU edges
+   on, per-feature LK); it must initialize the IMU, verify a loop after
+   that, launch K1, K2 and K4, and stay within the SE(3) ATE and
+   scale-error bounds set by the JAX package on the same frames.
 
-The last lines of standard output are ``nvidia-smi``'s name and power
-limit, the kernels record and ``{"ok": true, "device": {...}}``.
-Imports nothing of JAX.
+Every ATE comes from the port's own evaluator
+(``vio360_tpu_torch.utils.metrics.evaluate_tum``), in this process. The
+last lines of standard output are each phase's wall time, ``nvidia-smi``'s
+name and power limit, the kernels record and ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX and runs no script of the repo in a
+subprocess.
 """
 
 from __future__ import annotations
@@ -96,6 +111,20 @@ JAX_NOLOOP_ATE = 0.011975448197291357
 JAX_RELOC_FRAME = 55
 JAX_RELOC_ATE = 0.017858938024951223
 LOOP_ATE_BOUND = max(2.0 * JAX_LOOP_ATE, JAX_LOOP_ATE + 0.02)
+# The JAX package (CPU) on the VIO-at-the-defaults sequence (100 frames
+# 960x480, one lap of the revisit circuit, seed 41, pixel noise 0.05, its
+# IMU stream; loop closure and pose graph on), from ``JAX_PLATFORMS=cpu
+# python tools/jax_loop_reference.py OUT --render vio --vio``: it
+# initializes the IMU at frame 9 and verifies 9 loops, the first at frame
+# 50 (on the two-lap 200-frame sequence, the starting point, its first
+# loop came at frame 91). Bounds: max(2x, +0.02).
+JAX_DVIO_ATE_SE3 = 0.00817712463262061
+JAX_DVIO_SCALE_ERR = 0.0020621230681753255
+JAX_DVIO_IMU_INIT_FRAME = 9
+JAX_DVIO_FIRST_LOOP = 50
+JAX_DVIO_LOOPS = 9
+DVIO_ATE_BOUND = max(2.0 * JAX_DVIO_ATE_SE3, JAX_DVIO_ATE_SE3 + 0.02)
+DVIO_SCALE_BOUND = max(2.0 * JAX_DVIO_SCALE_ERR, JAX_DVIO_SCALE_ERR + 0.02)
 RELOC_ATE_BOUND = max(2.0 * JAX_RELOC_ATE, JAX_RELOC_ATE + 0.02)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
@@ -576,11 +605,13 @@ def phase_lk_matmul(dev):
 
 
 def evaluate_ate(traj: Path, groundtruth: Path, align: str) -> dict:
-    """ATE record of the repo's evaluator, ``tools/evaluate_ate.py``."""
-    out = subprocess.run([sys.executable, str(ROOT / "tools" / "evaluate_ate.py"), str(traj),
-                          str(groundtruth), "--align", align],
-                         capture_output=True, text=True, check=True, cwd=ROOT)
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    """ATE record of the port's evaluator (``tools/evaluate_ate.py``'s
+    association rule and keys), computed in this process."""
+    from vio360_tpu_torch.utils import metrics
+
+    out = metrics.evaluate_tum(str(traj), str(groundtruth), align)
+    check("error" not in out, f"ATE of {traj}: {out.get('error')}")
+    return out
 
 
 def _counters():
@@ -688,7 +719,7 @@ def phase_vio(dev, seq: Path):
 
 
 def _frames_ate(traj: Path, seq: Path, first: int) -> float:
-    """sim3 ATE of the trajectory's frames from ``first`` on (the repo's
+    """sim3 ATE of the trajectory's frames from ``first`` on (the port's
     evaluator on truncated copies of both files)."""
     cut = seq / "cut"
     cut.mkdir(exist_ok=True)
@@ -740,11 +771,97 @@ def phase_loop(dev):
         check(launches.get(name, 0) > 0, f"kernel {name} was not launched by the loop path")
     check(math.isfinite(ate) and ate <= LOOP_ATE_BOUND, f"ATE {ate} above bound {LOOP_ATE_BOUND}")
     check(np.isfinite(p_est).all() and p_est.shape == (300, 3), "bad trajectory")
+    ref = dict(traj=traj.read_text(), loops=loops, graph=graph, frames=frames, wall=wall)
     # for information (no gate): the same run without loop closure
     _, _, wall_off = _run_cli(seq, ["--vo", "--no-loop"], dev)
     ate_off = float(evaluate_ate(traj, seq / "groundtruth.tum", "sim3")["ate_rmse_sim3"])
     log(f"[loop] without loop closure: sim3 ATE {ate_off:.6f} m (JAX {JAX_NOLOOP_ATE:.6f}), wall "
         f"{1000 * wall_off / len(frames):.1f} ms/frame")
+    return launches, seq, ref
+
+
+def phase_resume(dev, seq: Path, ref: dict):
+    """Phase 7's run cut in two: ``--max-frames 150 --checkpoint``, then
+    ``--resume`` under ``--profile``; the result must be phase 7's, bit for bit."""
+    ck, prof_dir = seq / "ck.npz", seq / "profile"
+    ck.unlink(missing_ok=True)
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    first, rows1, wall1 = _run_cli(seq, ["--vo", "--max-frames", "150", "--checkpoint", str(ck)], dev)
+    frames1 = [r for r in rows1 if "frame" in r]
+    check(ck.is_file() and len(frames1) == 150, "the first half wrote no checkpoint")
+    second, rows2, wall2 = _run_cli(seq, ["--vo", "--resume", str(ck), "--profile", str(prof_dir)],
+                                    dev)
+    frames2 = [r for r in rows2 if "frame" in r]
+    graph = next(r for r in rows2 if r.get("event") == "pose_graph")
+    loops = [(r["frame"], r["loop_closed_to"]) for r in frames1 + frames2 if "loop_closed_to" in r]
+    same_traj = (seq / "traj.tum").read_text() == ref["traj"]
+    keys = ("frame", "state", "keyframe", "tracked", "inliers", "loop_closed_to")
+    parted = next((a["frame"] for a, b in zip(ref["frames"], frames1 + frames2)
+                   if any(a.get(k) != b.get(k) for k in keys)), None)
+    trace = (prof_dir / "trace.json").read_text() if (prof_dir / "trace.json").is_file() else ""
+    named = {k: k in trace for k in ("lk_kernel", "pnp_kernel", "ba_kernel")}
+    log(f"[resume] frames {len(frames1)} + {len(frames2)} (resume wall {wall2:.1f}s, "
+        f"{1000 * wall2 / max(len(frames2), 1):.1f} ms/frame under the profiler; first half "
+        f"{1000 * wall1 / len(frames1):.1f} ms/frame; checkpoint {ck.stat().st_size / 1e6:.1f} MB); "
+        f"trajectory equal to phase 7's: {same_traj}; first frame whose record differs: {parted}; "
+        f"verified loops {len(loops)} (phase 7 {len(ref['loops'])}); pose graph {graph}; "
+        f"trace {len(trace) / 1e6:.1f} MB names {named}")
+    log(f"[resume] launches {first} + {second}")
+    check(frames2 and frames2[0]["frame"] == 150 and len(frames1) + len(frames2) == 300,
+          "the resumed run did not continue at frame 150")
+    check(parted is None, f"the resumed run parts from phase 7's at frame {parted}")
+    check(loops == ref["loops"], "the resumed run's verified loops differ from phase 7's")
+    check(all(graph[k] == ref["graph"][k] for k in ("nodes", "edges", "loop_edges", "sim3_nodes")),
+          "the resumed run's pose graph differs from phase 7's")
+    check(same_traj, "the resumed trajectory differs from phase 7's")
+    check(all(named.values()), f"the profile does not name every kernel: {named}")
+    for name in ("lk_pyr", "lm_pnp", "lm_ba_solve"):
+        check(second.get(name, 0) > 0, f"kernel {name} was not launched by the resumed run")
+    return {k: first.get(k, 0) + second.get(k, 0) for k in set(first) | set(second)}
+
+
+def phase_vio_defaults(dev):
+    """VIO at the defaults: the 100-frame one-lap revisit sequence with its
+    IMU stream through the CLI (loop closure, pose graph with IMU edges,
+    per-feature LK)."""
+    import numpy as np
+
+    from vio360_tpu_torch import synthetic
+
+    seq = ROOT / "build" / "smoke_vio41"
+    shutil.rmtree(seq, ignore_errors=True)
+    synthetic.make_dataset(str(seq), frames=100, width=960, height=480, seed=41, texture=True,
+                           revisit=True, laps=1, pixel_noise=0.05, device=dev)
+    traj = seq / "traj.tum"
+    launches, rows, wall = _run_cli(seq, [], dev)
+    frames = [r for r in rows if "frame" in r]
+    states = [r["state"] for r in frames]
+    graph = next(r for r in rows if r.get("event") == "pose_graph")
+    summary = next(r for r in rows if r.get("event") == "stage_summary")
+    imu_init = next((r["frame"] for r in frames if r.get("imu_initialized")), -1)
+    loops = [r["frame"] for r in frames if "loop_closed_to" in r]
+    after = [f for f in loops if 0 <= imu_init < f]
+    p_est = np.loadtxt(traj, ndmin=2)[:, 1:4]
+    ev = evaluate_ate(traj, seq / "groundtruth.tum", "se3")
+    ate, scale_err = float(ev["ate_rmse_se3"]), float(ev["scale_error"])
+    log(f"[vio-defaults] init at frame {states.index('initialized') if 'initialized' in states else -1}, "
+        f"IMU init at frame {imu_init} (JAX {JAX_DVIO_IMU_INIT_FRAME}), keyframes "
+        f"{sum(bool(r['keyframe']) for r in frames)}, verified loops {len(loops)} (JAX "
+        f"{JAX_DVIO_LOOPS}), first after IMU init at frame {after[0] if after else -1} (JAX "
+        f"{JAX_DVIO_FIRST_LOOP}); pose graph {graph}")
+    log(f"[vio-defaults] SE(3) ATE {ate:.6f} m (bound {DVIO_ATE_BOUND:.6f}, JAX "
+        f"{JAX_DVIO_ATE_SE3:.6f}), scale error {scale_err:.5f} (bound {DVIO_SCALE_BOUND:.5f}, JAX "
+        f"{JAX_DVIO_SCALE_ERR:.5f}), wall {1000 * wall / len(frames):.1f} ms/frame; stage means "
+        "(ms): " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(summary.items())
+                             if k not in ("event", "wall_time")))
+    log(f"[vio-defaults] launches {launches}")
+    check(imu_init >= 0, "VIO at the defaults never initialized the IMU")
+    check(bool(after), "no verified loop after IMU init")
+    for name in ("lk_pyr", "lm_pnp", "lm_ba_solve"):
+        check(launches.get(name, 0) > 0, f"kernel {name} was not launched by VIO at the defaults")
+    check(math.isfinite(ate) and ate <= DVIO_ATE_BOUND, f"SE(3) ATE {ate} above {DVIO_ATE_BOUND}")
+    check(scale_err <= DVIO_SCALE_BOUND, f"scale error {scale_err} above {DVIO_SCALE_BOUND}")
+    check(np.isfinite(p_est).all() and p_est.shape == (100, 3), "bad trajectory")
     return launches
 
 
@@ -803,15 +920,26 @@ def main() -> int:
 
     device_mod.pin_fp32()
     dev = torch.device("cuda:0")
-    name, count = phase_device()
-    phase_build()
-    rec = phase_kernels(dev)
-    phase_lk_matmul(dev)
+    walls = {}
+
+    def timed(label, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        walls[label] = round(time.time() - t0, 1)
+        return out
+
+    name, count = timed("1 device", phase_device)
+    timed("2 build", phase_build)
+    rec = timed("3 kernels", phase_kernels, dev)
+    timed("4 lk_matmul", phase_lk_matmul, dev)
     seq = render_sequence(dev)
-    vo = phase_slice(dev, seq)
-    vio = phase_vio(dev, seq)
-    loop = phase_loop(dev)
-    reloc = phase_reloc(dev)
+    vo = timed("5 vo", phase_slice, dev, seq)
+    vio = timed("6 vio", phase_vio, dev, seq)
+    loop, loop_seq, loop_ref = timed("7 loop", phase_loop, dev)
+    reloc = timed("8 reloc", phase_reloc, dev)
+    resume = timed("9 resume", phase_resume, dev, loop_seq, loop_ref)
+    dvio = timed("10 vio-defaults", phase_vio_defaults, dev)
+    log(f"[phases] wall s: {walls}")
     sources = {
         "lk_pyr": ("vio360_tpu_torch/csrc/lk_pyr.cu", "vio360_tpu/ops/lk_pallas.py:64"),
         "lm_pnp": ("vio360_tpu_torch/csrc/lm_solve.cu", "vio360_tpu/solver/ba_pallas.py:777"),
@@ -821,7 +949,8 @@ def main() -> int:
     }
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": int(sum(run.get(k, 0) for run in (vo, vio, loop, reloc))), **rec[k],
+         "launches": int(sum(run.get(k, 0) for run in (vo, vio, loop, reloc, resume, dvio))),
+         **rec[k],
          **({"note": "tests only: on no main path"} if k == "lm_ba_iteration" else {})}
         for k, (src, rep) in sources.items()
     ]

@@ -39,6 +39,8 @@ cores many times over.
 """
 
 import dataclasses
+import io
+import json
 import os
 import subprocess
 import sys
@@ -253,9 +255,28 @@ def test_leaf_matches_jax(name):
     _CASES[name]()
 
 
+def _runs_repo_scripts(source: str) -> list[int]:
+    """Lines of ``source`` with a ``subprocess`` call that is handed
+    ``sys.executable``: a Python script run in a subprocess, whose imports
+    the import check below cannot see."""
+    import ast
+
+    def names_subprocess(f):
+        while isinstance(f, ast.Attribute):
+            f = f.value
+        return isinstance(f, ast.Name) and f.id == "subprocess"
+
+    return [n.lineno for n in ast.walk(ast.parse(source))
+            if isinstance(n, ast.Call) and names_subprocess(n.func)
+            and any(isinstance(a, ast.Attribute) and a.attr == "executable"
+                    and isinstance(a.value, ast.Name) and a.value.id == "sys"
+                    for a in ast.walk(n))]
+
+
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import neither JAX nor
-    any module of the JAX package."""
+    any module of the JAX package, and chip_smoke.py runs no Python script
+    of the repo in a subprocess."""
     code = (
         "import sys, importlib, pkgutil, vio360_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'vio360_tpu_torch.'):\n"
@@ -270,21 +291,44 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0 and "ok" in out.stdout, out.stderr
+    # the check sees the evaluator call chip_smoke.py used to make
+    assert _runs_repo_scripts("import subprocess, sys\nsubprocess.run([sys.executable, "
+                              "'tools/evaluate_ate.py', 'a', 'b'], check=True)\n") == [2]
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        assert _runs_repo_scripts(f.read()) == []
+
+
+_CLI_CFG = os.path.join(REPO, "configs", "synthetic_480.yaml")
+_CLI_OFF = ["--no-loop", "--no-pose-graph"]
 
 
 @pytest.mark.parametrize("extra,needle", [
     ([], None),  # the defaults: loop closure and pose graph on
     (["--no-loop"], None),
-    (["--no-loop", "--no-pose-graph", "--mesh", "lm=2"], "--mesh"),
-    (["--no-loop", "--no-pose-graph", "--frames-per-dispatch", "4"], "batched dispatch"),
-    (["--no-loop", "--no-pose-graph", "--x64"], "--x64"),
-    (["--no-loop", "--no-pose-graph", "--checkpoint", "c.pkl"], "--checkpoint"),
-    (["--no-loop", "--no-pose-graph", "--resume", "c.pkl"], "--resume"),
+    (_CLI_OFF + ["--mesh", "lm=2"], "--mesh"),
+    (_CLI_OFF + ["--frames-per-dispatch", "4"], "batched dispatch"),
+    (_CLI_OFF + ["--x64"], "--x64"),
+    (_CLI_OFF + ["--checkpoint", "c.npz"], "run:checkpoint"),
+    (_CLI_OFF + ["--resume", "c.npz"], "run:resume"),
+    (_CLI_OFF + ["--checkpoint", "c.npz", "--checkpoint-every", "1"], "run:checkpoint"),
+    (_CLI_OFF + ["--step"], "run:step"),
+    (_CLI_OFF + ["--pause-on-init"], "run:one"),
+    (_CLI_OFF + ["--profile", "prof"], "run:profile"),
+    (_CLI_OFF + ["--no-pipelined"], "run:one"),
+    (_CLI_OFF + ["--solver-backend", "auto"], "run:one"),
+    (_CLI_OFF + ["--solver-backend", "xla"], "--solver-backend xla"),
+    (_CLI_OFF + ["--solver-backend", "pallas-interpret"], "--solver-backend pallas-interpret"),
+    (_CLI_OFF + ["--viz-dir", "viz"], "--viz-dir"),
+    (_CLI_OFF + ["--viz-fps", "10"], "--viz-fps"),
 ])
-def test_cli_refuses_unported(tmp_path, capsys, extra, needle):
+def test_cli_refuses_unported(tmp_path, capsys, monkeypatch, extra, needle):
     """Unported flags exit 2 and name the part; the defaults and
     ``--no-loop`` (loop closure and pose graph ported) run to the end on a
-    tiny CPU sequence."""
+    tiny CPU sequence; the ported host-loop flags run (on the first frame,
+    or both for ``--resume`` and ``--step``) and leave their output:
+    a checkpoint that loads at its frame, a resumed run that continues at
+    the next frame, a ``--step`` run that the prompt quits after frame 0,
+    a profiler trace."""
     from vio360_tpu_torch import cli
 
     os.makedirs(tmp_path / "images")
@@ -292,15 +336,41 @@ def test_cli_refuses_unported(tmp_path, capsys, extra, needle):
         np.save(tmp_path / "images" / f"{i:06d}.npy", _image(i)[0])
     (tmp_path / "cam_timestamps.txt").write_text("0.0\n0.1\n")
     (tmp_path / "imu_data.csv").write_text("timestamp,ax,ay,az,gx,gy,gz\n0.0,0,0,9.81,0,0,0\n")
+    extra = [str(tmp_path / a) if a in ("c.npz", "prof", "viz") else a for a in extra]
+    out = tmp_path / "traj.tum"
     if needle is None:
-        out = tmp_path / "traj.tum"
         assert cli.main([str(tmp_path), *extra, "--device", "cpu", "--output", str(out),
                          "--quiet"]) == 0
         assert len(out.read_text().splitlines()) == 2
         return
-    assert cli.main([str(tmp_path), *extra]) == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and needle in err, err
+    if not needle.startswith("run:"):
+        assert cli.main([str(tmp_path), *extra]) == 2
+        err = capsys.readouterr().err
+        assert "not ported" in err and needle in err, err
+        return
+    kind = needle[4:]
+    base = [str(tmp_path), "--config", _CLI_CFG, "--device", "cpu", "--output", str(out), "--quiet"]
+    one = [] if kind in ("resume", "step") else ["--max-frames", "1"]
+    ck = tmp_path / "c.npz"
+    if kind == "resume":
+        assert cli.main(base + _CLI_OFF + ["--max-frames", "1", "--checkpoint", str(ck)]) == 0
+    monkeypatch.setattr(sys, "stdin", io.StringIO("q\n" if kind == "step" else ""))
+    met = tmp_path / "m.jsonl"
+    assert cli.main(base + extra + one + ["--metrics", str(met)]) == 0
+    frames = [r["frame"] for r in map(json.loads, met.read_text().splitlines())
+              if "frame" in r]
+    n_lines = len(out.read_text().splitlines())
+    if kind == "checkpoint":
+        cfg = dataclasses.replace(tcfg.load_yaml(_CLI_CFG), loop=tcfg.LoopConfig(enabled=False),
+                                  pose_graph=tcfg.PoseGraphConfig(enabled=False))
+        assert TorchEstimator.load(str(ck), cfg, device="cpu").frame_id == 0
+    if kind == "resume":
+        assert frames == [1] and n_lines == 2
+    else:
+        assert frames == [0] and n_lines == 1
+    if kind == "profile":
+        with open(tmp_path / "prof" / "trace.json") as f:
+            assert json.load(f)["traceEvents"]
 
 
 def test_entry_points_refuse_without_a_card(tmp_path, capsys, monkeypatch):

@@ -10,17 +10,20 @@ keyframe events with window BA or VIBA, the IMU-init retry after a
 rejection, and the periodic scale / gravity refine), the pose-graph
 store (eviction edges with covariance weights, loop edges, the SE(3) or
 Sim(3) solve at export), loop closure after every keyframe event,
-relocalization after ``loop.reloc_after`` lost frames, and
-``export_trajectory``. The megastep, pipelined / batched loops and
-checkpoints are not ported yet; the constructor refuses configurations
-that need them. Every numeric stage runs on ``self.device``; the host
-reads small records.
+relocalization after ``loop.reloc_after`` lost frames,
+``export_trajectory``, the run lifecycle (``reset``, ``capture_state`` /
+``restore_state``, ``save`` / ``load`` of either package's checkpoint) and
+the async frame API (``process_frame_async`` / ``flush``). The megastep
+and batched dispatch are not ported; the constructor refuses
+configurations that need them. Every numeric stage runs on
+``self.device``; the host reads small records.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import time
 from typing import Any
 
@@ -32,6 +35,7 @@ from ..config import VioConfig, fit_loop_config
 from ..frontend import tracker
 from ..geometry import lie
 from ..imu import preintegration as pre
+from ..io import checkpoint as ckpt
 from ..loop import closure as loop_mod
 from ..solver import imu_init as imu_init_mod
 from ..solver import marginals
@@ -88,6 +92,13 @@ def unported_features(cfg: VioConfig) -> list[str]:
     return out
 
 
+def generator_seed(words: np.ndarray) -> int:
+    """A 63-bit generator seed from the bytes of a saved generator state
+    or PRNG key: the first 8 bytes of their SHA-256, little-endian."""
+    digest = hashlib.sha256(np.ascontiguousarray(words).tobytes()).digest()
+    return int.from_bytes(digest[:8], "little") & ((1 << 63) - 1)
+
+
 def _rows(imu) -> np.ndarray:
     return (np.asarray(imu, np.float64).reshape(-1, 7) if imu is not None and len(imu)
             else np.zeros((0, 7)))
@@ -97,6 +108,26 @@ class Estimator:
     """Stateful facade: ``process_frame(image, timestamp, imu)`` per frame.
     ``device=None`` means the card (``device.resolve``)."""
 
+    # The complete mutable state: capture_state saves these attributes and
+    # restore_state sets them, so that a resumed run equals an uninterrupted
+    # one bit for bit (tests/test_torch_checkpoint.py holds this tuple and
+    # _NOT_STATE against the attributes __init__ creates). ``gen`` is saved
+    # as its generator state (on the card its Philox seed and offset), the
+    # loop closer as its capture_state.
+    _STATE = (
+        "frame_id", "initialized", "gen", "track", "win", "img_prev", "snapshots",
+        "r_cur", "t_cur", "r_prev", "t_prev", "vel_cur", "bg", "ba", "gravity_w",
+        "imu_initialized", "has_imu_stream", "scale_refine_count", "preints", "n_pairs",
+        "imu_since_last_kf", "last_imu_rows", "trajectory", "traj_rel", "kf_pose_log",
+        "last_kf_fid", "last_kf_capture", "n_kf_host", "lost_streak", "pg_nodes", "pg_edges",
+        "loop_closer", "_last_kf_window_host",
+    )
+    # Not state: the configuration (with its fit_loop_config result) and
+    # what __init__ derives from it, the per-keyframe Sim(3) scales (filled
+    # by the export's pose-graph solve) and the stage timers.
+    _NOT_STATE = ("cfg", "device", "seed", "capacity", "t_bc", "r_bc", "r_cb", "t_cb",
+                  "kf_scale_log", "timers")
+
     def __init__(self, cfg: VioConfig, device: str | torch.device | None = None, seed: int = 0):
         missing = unported_features(cfg)
         if missing:
@@ -104,6 +135,7 @@ class Estimator:
         device_mod.pin_fp32()
         self.cfg = cfg
         self.device = device_mod.resolve(device)
+        self.seed = seed
         dev = self.device
         self.capacity = cfg.features.capacity
         self.track = tracker.init_state(self.capacity, dev)
@@ -837,6 +869,86 @@ class Estimator:
         log.info("relocalized against frame %d (%d inliers, score %.2f)", rec["old_fid"],
                  rec["n_inliers"], rec["score"])
         return r_b.cpu().numpy(), t_b.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # Async frame API and run lifecycle
+    # ------------------------------------------------------------------
+
+    def process_frame_async(self, image, timestamp: float, imu: np.ndarray | None = None) -> list:
+        """``process_frame`` under the JAX package's pipelined contract:
+        returns the FrameResults that became available, in frame order,
+        each equal to what ``process_frame`` returns; ``flush()`` resolves
+        whatever is still in flight. The port resolves every frame in its
+        own call: its tracking frame is host-bound on the card and already
+        ends in one fetch of its result bundle, so deferring that fetch
+        behind the next frame's work would hide little; nothing is ever in
+        flight and this returns the frame's own result."""
+        return [self.process_frame(image, timestamp, imu)]
+
+    def flush(self) -> list:
+        """Resolve every in-flight frame (none: see ``process_frame_async``)."""
+        return []
+
+    def reset(self) -> None:
+        """Back to the pre-bootstrap state on the same device with the
+        same configuration; tracking, map, inertial and trajectory state
+        are discarded and the generator is seeded afresh."""
+        self.__init__(self.cfg, self.device, self.seed)
+
+    def capture_state(self) -> dict:
+        """The complete mutable state (``_STATE``), sharing no storage with
+        the live estimator."""
+        self.flush()  # resolve any in-flight frame first
+        state = {"version": 1, "package": "vio360_tpu_torch"}
+        for name in self._STATE:
+            v = getattr(self, name)
+            if name == "gen":
+                v = v.get_state()
+            elif name == "loop_closer":
+                v = None if v is None else v.capture_state()
+            state[name] = ckpt.copy_tree(v)
+        return state
+
+    def restore_state(self, state: dict, copy: bool = True) -> None:
+        """Set the state captured by ``capture_state`` (or read by ``load``).
+        ``copy=False`` takes over the leaves instead of copying them, for a
+        state that nothing else holds (``load``'s, just read from a file)."""
+        if state.get("package") != "vio360_tpu_torch":
+            raise ValueError("not a state of the port: convert a JAX package state with "
+                             "convert.state_from_jax (Estimator.load does)")
+        for name in self._STATE:
+            v = state[name]
+            if name == "gen":
+                gen_state = v.cpu()
+                if gen_state.numel() != self.gen.get_state().numel():
+                    # a state saved on another device type: seed from its bytes
+                    self.gen.manual_seed(generator_seed(gen_state.numpy()))
+                else:
+                    self.gen.set_state(gen_state)
+            elif name == "loop_closer":
+                if (v is None) != (self.loop_closer is None):
+                    raise ValueError("checkpoint and configuration disagree on loop closure")
+                if v is not None:
+                    self.loop_closer.restore_state(v, copy)
+            else:
+                setattr(self, name, ckpt.copy_tree(v, self.device, copy))
+
+    def save(self, path: str) -> None:
+        ckpt.save_state(path, self.capture_state())
+
+    @classmethod
+    def load(cls, path: str, cfg: VioConfig, device: str | torch.device | None = None
+             ) -> "Estimator":
+        """An estimator resumed from a checkpoint of the port or of the JAX
+        package (converted by ``convert.state_from_jax``)."""
+        est = cls(cfg, device=device)
+        state = ckpt.load_state(path, est.device)
+        if state.get("package") != "vio360_tpu_torch":
+            from .. import convert
+
+            state = convert.state_from_jax(state, est.device)
+        est.restore_state(state, copy=False)
+        return est
 
     def export_trajectory(self):
         """Trajectory with keyframes at their latest refined poses and

@@ -1,6 +1,6 @@
-"""Trajectory export/import in the TUM format.
+"""Trajectory export/import in the TUM and KITTI formats.
 
-The port's own copy of ``vio360_tpu/io/trajectory.py`` (TUM only).
+The port's own copy of ``vio360_tpu/io/trajectory.py``.
 """
 
 from __future__ import annotations
@@ -62,3 +62,11 @@ def read_tum(path: str):
             ps.append(vals[1:4])
             rs.append(quat_to_rotmat(np.asarray(vals[4:8])))
     return np.asarray(ts), np.asarray(rs), np.asarray(ps)
+
+
+def write_kitti(path: str, rotations, translations) -> None:
+    """KITTI format: the 12 values of the 3x4 [R|t] per line."""
+    with open(path, "w") as f:
+        for r, p in zip(rotations, translations):
+            m = np.concatenate([np.asarray(r), np.asarray(p).reshape(3, 1)], axis=1)
+            f.write(" ".join(f"{v:.9e}" for v in m.reshape(-1)) + "\n")

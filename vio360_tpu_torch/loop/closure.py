@@ -1,7 +1,7 @@
 """Appearance-based loop closure and relocalization.
 
-Counterpart of ``vio360_tpu/loop/closure.py`` without its megastep and
-checkpoint parts. Per keyframe: ring descriptor and feature patches
+Counterpart of ``vio360_tpu/loop/closure.py`` without its megastep
+parts. Per keyframe: ring descriptor and feature patches
 (loop/descriptor.py), ingest into the fixed-capacity place database on
 the device, circular-correlation retrieval over all entries, NCC patch
 matching against the top ``verify_top_k`` candidates, and geometric
@@ -11,6 +11,8 @@ candidate with the most chi2 inliers among the PnP successes wins, and
 its loop edge and rigid world correction come back in one packed record.
 The host gates the record, appends a ``loop`` edge to the pose-graph
 store and applies the correction to the live window and map.
+``LoopCloser.capture_state`` / ``restore_state`` carry the database and
+its ring bookkeeping through a checkpoint.
 Relocalization runs the same retrieval and verification over the whole
 database, each PnP seeded at its candidate's stored pose, and re-seeds
 the map with the matched landmarks (marginalized, so they pin scale).
@@ -306,3 +308,23 @@ class LoopCloser:
         self.db = transform_db(self.db, torch.as_tensor(np.asarray(r_gw), dtype=torch.float32, device=dev),
                                float(s), torch.as_tensor(np.asarray(t_anchor), dtype=torch.float32,
                                                          device=dev))
+
+    def capture_state(self) -> dict:
+        """The database and its ring bookkeeping (the JAX package's keys),
+        sharing no storage with the live state."""
+        from ..io.checkpoint import copy_tree
+
+        return {"db": copy_tree(self.db), "entry_fid": self.entry_fid.copy(),
+                "entry_seq": self.entry_seq.copy(), "seq": self.seq,
+                "last_correction_seq": self._last_correction_seq}
+
+    def restore_state(self, state: dict, copy: bool = True) -> None:
+        """Set a state of ``capture_state``; ``copy=False`` takes over the
+        leaves of a state that nothing else holds (``Estimator.load``)."""
+        from ..io.checkpoint import copy_tree
+
+        self.db = copy_tree(state["db"], self.db.desc.device, copy)
+        self.entry_fid, self.entry_seq = (
+            copy_tree(np.asarray(state[k], np.int64), None, copy) for k in ("entry_fid", "entry_seq"))
+        self.seq = int(state["seq"])
+        self._last_correction_seq = int(state["last_correction_seq"])
